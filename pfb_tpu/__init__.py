@@ -1,6 +1,6 @@
-"""pfb_tpu — TPU-native radio-interferometric imaging framework.
+"""pfb_tpu — radio-interferometric imaging framework in JAX.
 
-A brand-new JAX/XLA/Pallas implementation of the pre-conditioned
+A brand-new JAX/XLA implementation of the pre-conditioned
 forward-backward (PFB) imaging stack with the capabilities of
 ratt-ru/pfb-clean (pfb-imaging, reference at /root/reference):
 

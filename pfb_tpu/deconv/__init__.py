@@ -1,3 +1,3 @@
-"""Deconvolution minor cycles (Hogbom, Clark) — TPU-native equivalents
+"""Deconvolution minor cycles (Hogbom, Clark) — JAX equivalents
 of pfb/deconv/ in the reference, restructured as lax.while_loop programs
 with dynamic-slice PSF subtraction."""

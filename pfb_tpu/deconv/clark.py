@@ -1,7 +1,7 @@
 """Clark CLEAN: active-set minor cycle with periodic exact residual
 updates via cube PSF convolution.
 
-TPU-native redesign of pfb/deconv/clark.py:12-177. The reference
+JAX redesign of pfb/deconv/clark.py:12-177. The reference
 extracts the active set into index lists and runs a numba subminor loop;
 here the active set is a boolean image mask (static shapes for XLA) and
 the subminor peak-find/subtract runs as a lax.while_loop over the full
@@ -60,13 +60,14 @@ def _subminor(IR, PSF, mask, model, wsums, gamma, subth, submaxit):
 
     def body(state):
         IR, model, p, q, Amax, k = state
-        xhat = IR[:, p, q]
-        model = model.at[:, p, q].add(
-            jnp.where(fsel, gamma * xhat / safe_wsums, 0.0))
+        # the model gains gamma * xhat / wsums per band; its image is
+        # that flux times the band's PSF, whose peak is wsums
+        dx = jnp.where(fsel, gamma * IR[:, p, q] / safe_wsums, 0.0)
+        model = model.at[:, p, q].add(dx)
         psf_slice = lax.dynamic_slice(
             PSF, (0, nx0 - p, ny0 - q), (nband, nx, ny))
-        IR = IR - jnp.where(mask[None], gamma * xhat[:, None, None]
-                            * psf_slice, 0.0)
+        IR = IR - jnp.where(mask[None], dx[:, None, None] * psf_slice,
+                            0.0)
         pn, qn, Amax_n = _peak(IR, mask)
         return IR, model, pn, qn, Amax_n, k + 1
 

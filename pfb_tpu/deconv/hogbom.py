@@ -1,6 +1,6 @@
 """Hogbom CLEAN minor cycle.
 
-TPU-native redesign of pfb/deconv/hogbom.py:8-74: the numpy/numexpr
+JAX redesign of pfb/deconv/hogbom.py:8-74: the numpy/numexpr
 peak-find/subtract loop becomes one lax.while_loop with a
 dynamic-slice PSF subtraction (the reference itself sketches this
 design in its commented-out hogbom_jax, deconv/hogbom.py:77-117).

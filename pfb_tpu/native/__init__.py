@@ -1,18 +1,16 @@
 """Native (C++) runtime components, loaded via ctypes.
 
-The compute path is JAX/XLA/Pallas; the host-side runtime around it —
-here the gridder plan builder (uv-tile binning + entry packing), the
-role ducc0's C++ plays for the reference's host side — is native C++
-compiled on first use with the system toolchain and cached. Every
-native routine has a numpy fallback, so the package works without a
-compiler.
+The compute path is JAX/XLA; the host-side runtime around it — here
+the uv-counts pass of Briggs weighting, the role numba plays for the
+reference's host side — is native C++ compiled on first use with the
+system toolchain and cached. Every native routine has a numpy
+fallback, so the package works without a compiler.
 """
 
 import ctypes
 import hashlib
 import os
 import subprocess
-import tempfile
 
 import numpy as np
 
@@ -27,9 +25,10 @@ def _build_lib():
     src = os.path.join(_here, "plan.cc")
     with open(src, "rb") as f:
         tag = hashlib.sha256(f.read()).hexdigest()[:16]
-    cache = os.environ.get("PFB_TPU_NATIVE_CACHE",
-                           os.path.join(tempfile.gettempdir(),
-                                        "pfb_tpu_native"))
+    cache = os.environ.get(
+        "PFB_TPU_NATIVE_CACHE",
+        os.path.join(os.path.dirname(os.path.dirname(_here)),
+                     ".native_build"))
     os.makedirs(cache, exist_ok=True)
     out = os.path.join(cache, f"plan_{tag}.so")
     if os.path.exists(out):
@@ -63,63 +62,13 @@ def get_lib():
     i64 = ctypes.c_int64
     dbl = ctypes.c_double
     p_dbl = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
-    p_i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
-    p_i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
-    lib.pg_plan_count.argtypes = [
-        p_dbl, i64, p_dbl, i64, dbl, dbl, i64, i64, i64, i64, i64,
-        i64, dbl, dbl, ctypes.c_int, p_i64]
-    lib.pg_plan_count.restype = ctypes.c_int
-    lib.pg_plan_fill.argtypes = [
-        p_dbl, i64, p_dbl, i64, dbl, dbl, i64, i64, i64, i64, i64,
-        i64, dbl, dbl, ctypes.c_int, i64, i64, p_i64, p_i64, i64,
-        p_dbl, p_i32, p_i32, p_dbl]
-    lib.pg_plan_fill.restype = ctypes.c_int
     p_u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
     lib.pg_compute_counts.argtypes = [
         p_dbl, i64, p_dbl, i64, p_u8, i64, i64, dbl, dbl,
         ctypes.c_int, p_dbl]
     lib.pg_compute_counts.restype = ctypes.c_int
-    lib.pg_gs_count.argtypes = [
-        p_dbl, i64, p_dbl, i64, dbl, dbl, i64, i64, i64, i64, i64,
-        i64, dbl, dbl, ctypes.c_int, p_i64]
-    lib.pg_gs_count.restype = ctypes.c_int
-    lib.pg_gs_fill.argtypes = [
-        p_dbl, i64, p_dbl, i64, dbl, dbl, i64, i64, i64, i64, i64,
-        i64, dbl, dbl, ctypes.c_int, i64, i64, p_i64, p_i64, p_i64,
-        i64, p_dbl, p_i32, p_dbl, p_i32, p_i64, p_i64, p_i64]
-    lib.pg_gs_fill.restype = ctypes.c_int
     _lib = lib
     return _lib
-
-
-def pg_plan_native(uvw, freq, *, Nx, Ny, cellx, celly, txs, tys, ntx,
-                   nty, w0, dw, nw, C, k):
-    """Native uv-tile binning + entry packing for pgrid_plan: returns
-    (pos (nentries, 8, C) f64, tid (nentries,) i32, idx (nentries, C)
-    i32, pmask (nentries, C) f64 0/1), bit-identical to the numpy
-    path, or None when no native library is available."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    uvw = np.ascontiguousarray(uvw, np.float64)
-    freq = np.ascontiguousarray(freq, np.float64)
-    nrow, nchan = uvw.shape[0], freq.shape[0]
-    ntiles = ntx * nty
-    counts = np.zeros(ntiles, np.int64)
-    lib.pg_plan_count(uvw, nrow, freq, nchan, cellx, celly, Nx, Ny,
-                      txs, tys, ntx, nty, w0, dw, nw, counts)
-    entries_per = np.maximum(1, -(-counts // C))
-    offsets = np.zeros(ntiles + 1, np.int64)
-    np.cumsum(entries_per, out=offsets[1:])
-    nentries = int(offsets[-1])
-    pos = np.zeros((nentries, 8, C), np.float64)
-    tid = np.zeros(nentries, np.int32)
-    idx = np.zeros((nentries, C), np.int32)
-    pm = np.zeros((nentries, C), np.float64)
-    lib.pg_plan_fill(uvw, nrow, freq, nchan, cellx, celly, Nx, Ny,
-                     txs, tys, ntx, nty, w0, dw, nw, C, k, counts,
-                     offsets, nentries, pos, tid, idx, pm)
-    return pos, tid, idx, pm
 
 
 def pg_counts_native(uvw, freq, mask, nx, ny, cellx, celly, k=6):
@@ -134,47 +83,9 @@ def pg_counts_native(uvw, freq, mask, nx, ny, cellx, celly, k=6):
     freq = np.ascontiguousarray(freq, np.float64)
     mask = np.ascontiguousarray(np.asarray(mask) != 0, np.uint8)
     out = np.zeros(int(nx) * int(ny), np.float64)
-    lib.pg_compute_counts(uvw, uvw.shape[0], freq, freq.shape[0],
-                          mask, int(nx), int(ny), float(cellx),
-                          float(celly), int(k), out)
-    return out.reshape(int(nx), int(ny))
-
-
-def pg_gs_plan_native(uvw, freq, *, Nx, Ny, cellx, celly, txs, tys,
-                      ntx, nty, w0, dw, nw, C, k):
-    """Native global-stream plan builder (the heavy half of
-    pg_stream._pg_plan_gs: per-vis coords, (tile, w) sort, entry
-    packing). Returns (pos, gidx, gpm, utid, pmin, pmax, sxy)
-    bit-identical to the numpy path, or None without a toolchain."""
-    lib = get_lib()
-    if lib is None:
+    rc = lib.pg_compute_counts(uvw, uvw.shape[0], freq, freq.shape[0],
+                               mask, int(nx), int(ny), float(cellx),
+                               float(celly), int(k), out)
+    if rc != 0:
         return None
-    uvw = np.ascontiguousarray(uvw, np.float64)
-    freq = np.ascontiguousarray(freq, np.float64)
-    nrow, nchan = uvw.shape[0], freq.shape[0]
-    ntiles = ntx * nty
-    counts = np.zeros(ntiles, np.int64)
-    lib.pg_gs_count(uvw, nrow, freq, nchan, cellx, celly, Nx, Ny,
-                    txs, tys, ntx, nty, w0, dw, nw, counts)
-    vis_offsets = np.zeros(ntiles, np.int64)
-    np.cumsum(counts[:-1], out=vis_offsets[1:])
-    entries_per = -(-counts // C)  # 0 for empty tiles
-    entry_offsets = np.zeros(ntiles, np.int64)
-    np.cumsum(entries_per[:-1], out=entry_offsets[1:])
-    NEg = int(entries_per.sum())
-    pos = np.zeros((NEg + 1, 8, C), np.float64)
-    gidx = np.zeros((NEg + 1, C), np.int32)
-    gpm = np.zeros((NEg + 1, C), np.float64)
-    utid = np.zeros(NEg, np.int32)
-    pmin = np.zeros(NEg, np.int64)
-    pmax = np.zeros(NEg, np.int64)
-    sxy = np.zeros(NEg, np.int64)
-    lib.pg_gs_fill(uvw, nrow, freq, nchan, cellx, celly, Nx, Ny,
-                   txs, tys, ntx, nty, w0, dw, nw, C, k, counts,
-                   vis_offsets, entry_offsets, NEg,
-                   pos.reshape(-1), gidx.reshape(-1),
-                   gpm.reshape(-1), utid, pmin, pmax, sxy)
-    # null entry (matches _pg_plan_gs)
-    pos[NEg, 0:2] = -2.0 * k
-    pos[NEg, 3:5] = -2.0 * k
-    return pos, gidx, gpm, utid.astype(np.int64), pmin, pmax, sxy
+    return out.reshape(int(nx), int(ny))

@@ -1,3 +1,3 @@
 """Linear operators (measurement operator, PSF Hessian, FFTs, wavelets,
-prox, weighting) — the TPU-native equivalents of pfb/operators/,
+prox, weighting) — the JAX equivalents of pfb/operators/,
 pfb/wavelets/ and pfb/prox/ in the reference."""

@@ -5,7 +5,7 @@ This is the correctness oracle for the ES-kernel wgridder (and the
 production path for small problems): the reference delegates both
 directions to ducc0.wgridder vis2dirty/dirty2vis
 (pfb/operators/gridder.py:10,153-167,258-294); here they are chunked
-cos/sin matmuls that ride the MXU.
+cos/sin matrix products.
 
 Conventions (matching ducc0/the reference's usage):
 - pixel centres: l_i = (i - nx//2)*cellx + x0, m_j likewise
@@ -74,8 +74,7 @@ def dirty2vis_dft(uvw, freq, image, cellx, celly, x0=0.0, y0=0.0, *,
                   nx=None, ny=None, do_wterm=True, divide_by_n=False,
                   row_chunk=128, split=False):
     """R: (nx, ny) image -> (nrow, nchan) complex visibilities.
-    split=True returns (real, imag) device arrays — use on TPU
-    runtimes where complex device<->host transfer is unsupported."""
+    split=True returns (real, imag) device arrays."""
     vr, vi = _dirty2vis_impl(uvw, freq, image, cellx, celly, x0=x0,
                              y0=y0, do_wterm=do_wterm,
                              divide_by_n=divide_by_n,
@@ -125,8 +124,9 @@ def _dirty2vis_impl(uvw, freq, image, cellx, celly, x0=0.0, y0=0.0, *,
             cyc = cyc + _frac_cycles(au[..., None] / cellx, x0) \
                 + _frac_cycles(av[..., None] / celly, y0)
         phase = (-2.0 * jnp.pi) * (cyc - jnp.round(cyc))
-        # HIGHEST: TPU DEFAULT matmuls are bf16 products (~1e-3
-        # relative) — the oracle must accumulate at full f32
+        # HIGHEST: a float32 product at DEFAULT precision may run in
+        # TF32 on a GPU (~1e-3 relative) — the oracle must accumulate
+        # at full f32
         vr = jnp.einsum("rcp,p->rc", jnp.cos(phase), img_flat,
                         precision=lax.Precision.HIGHEST)
         vi = jnp.einsum("rcp,p->rc", jnp.sin(phase), img_flat,
@@ -142,9 +142,7 @@ def vis2dirty_dft(uvw, freq, vis, wgt=None, mask=None, *, nx, ny,
                   cellx, celly, x0=0.0, y0=0.0, do_wterm=True,
                   divide_by_n=False, row_chunk=128):
     """R.H: (nrow, nchan) visibilities -> (nx, ny) dirty image.
-    ``vis`` may be complex or a (real, imag) tuple; host numpy complex
-    is split host-side so no complex array ever crosses to the device
-    (unsupported on some TPU runtimes)."""
+    ``vis`` may be complex or a (real, imag) tuple."""
     if isinstance(vis, (tuple, list)):
         vr, vi = vis
     elif isinstance(vis, np.ndarray):
@@ -202,8 +200,8 @@ def _vis2dirty_impl(uvw, freq, vr, vi, wgt=None, mask=None, *, nx, ny,
                 + _frac_cycles(av[..., None] / celly, y0)
         phase = (2.0 * jnp.pi) * (cyc - jnp.round(cyc))
         # Re[vis * e^{i phase}] = vr cos - vi sin. HIGHEST precision:
-        # TPU DEFAULT matmuls are bf16 products (~1e-3 relative error,
-        # the dominant f32-pipeline error source) — the oracle must
+        # a float32 product at DEFAULT precision may run in TF32 on a
+        # GPU (~1e-3 relative error) — the oracle must
         # multiply-accumulate at full f32.
         acc = jnp.einsum("rc,rcp->p", wvr, jnp.cos(phase),
                          preferred_element_type=rdtype,

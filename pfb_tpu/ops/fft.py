@@ -1,6 +1,6 @@
 """FFT helpers.
 
-TPU-native replacement for the reference's ducc0.fft usage
+JAX replacement for the reference's ducc0.fft usage
 (reference: pfb/operators/fft.py, pfb/operators/psf.py:22-27).
 
 Conventions (identical to the reference):
@@ -79,10 +79,10 @@ def _psf_convolve_impl(x, psfhat, nx, ny, lastsize, band_chunk=None):
 
     if band_chunk is None or x.ndim == 2 or x.shape[0] <= band_chunk:
         return one((x, psfhat))
-    # Large cubes: FFT workspace for the full padded cube can exceed HBM
-    # (psf_oversize=2 quadruples the grid — the reference's memory wall,
-    # spotless.py:175-183). Process the band axis in chunks with lax.map;
-    # the op is HBM-bandwidth bound so chunking costs ~nothing.
+    # Large cubes: FFT workspace for the full padded cube can exceed
+    # device memory (psf_oversize=2 quadruples the grid — the
+    # reference's memory wall, spotless.py:175-183). Process the band
+    # axis in chunks with lax.map.
     nband = x.shape[0]
     nchunk = -(-nband // band_chunk)
     npad = nchunk * band_chunk - nband
@@ -110,8 +110,8 @@ def psf_convolve_cube(x, psfhat, lastsize, band_chunk=None):
     (reference: pfb/operators/psf.py:32-56). x is (nband, nx, ny),
     psfhat is (nband, nx_psf, lastsize//2+1).
 
-    ``band_chunk`` bounds FFT workspace by mapping over chunks of bands
-    (needed for 4096^2 x 8 with psf_oversize=2 on a 16GB chip)."""
+    ``band_chunk`` bounds FFT workspace by mapping over chunks of
+    bands."""
     nx, ny = x.shape[-2:]
     return _psf_convolve_impl(x, psfhat, nx, ny, lastsize,
                               band_chunk=band_chunk)

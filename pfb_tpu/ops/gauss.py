@@ -37,7 +37,8 @@ def kron_matvec(A, b):
     for Ad in A:
         Gd = Ad.shape[0]
         X = x.reshape(Gd, N // Gd)
-        x = (Ad @ X).T.reshape(-1)
+        x = jnp.matmul(Ad, X, precision=jax.lax.Precision.HIGHEST
+                       ).T.reshape(-1)
     return x.reshape(b.shape)
 
 

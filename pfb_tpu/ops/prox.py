@@ -1,6 +1,6 @@
 """Proximal operators for the l21 regularisers.
 
-TPU-native equivalents of pfb/prox/prox_21.py and prox_21m.py — the
+JAX equivalents of pfb/prox/prox_21.py and prox_21m.py — the
 numba loops are trivial vectorised jnp; XLA fuses them.
 
 Shapes: v is (nband, nbasis, nymax, nxmax); weight is

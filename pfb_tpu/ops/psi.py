@@ -1,6 +1,6 @@
 """SARA wavelet dictionary Psi.
 
-TPU-native re-design of pfb/operators/psi.py: the numba jitclass +
+JAX re-design of pfb/operators/psi.py: the numba jitclass +
 ThreadPool-over-bands becomes a pure function vmapped over the band axis;
 the per-basis transforms (different packed sizes) are unrolled statically
 and zero-padded into the common (nbasis, Nymax, Nxmax) coefficient cube.

@@ -1,7 +1,7 @@
 """Multi-level 2-D discrete wavelet transform with zero-extension
 ("mode=zero") boundary and the reference's packed coefficient layout.
 
-TPU-native re-design of pfb/wavelets/wavelets.py (numba) — the
+JAX re-design of pfb/wavelets/wavelets.py (numba) — the
 convolutions become strided `lax.conv_general_dilated` ops batched over
 image rows, and the packed array is assembled with static slice updates
 (all sizes are compile-time constants derived in plain Python).
@@ -34,6 +34,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax import lax
+
+# float32 convolutions at DEFAULT precision may run in TF32 on a GPU
+# (~3 digits); the wavelet transforms feed the exact Psi round trip
+_HIGHEST = lax.Precision.HIGHEST
 
 from pfb_tpu.ops.filters import dwt_max_level, filter_bank
 
@@ -128,7 +132,8 @@ def _down_conv_last(x, f):
     pl = F - 2
     pr = 2 * C - N
     out = lax.conv_general_dilated(
-        lhs, k, window_strides=(2,), padding=[(pl, pr)])
+        lhs, k, window_strides=(2,), padding=[(pl, pr)],
+        precision=_HIGHEST)
     return out.reshape(*lead, C)
 
 
@@ -145,8 +150,10 @@ def _up_conv_last(c, f, O):
     lead = c.shape[:-1]
     lhs = c.reshape(-1, 1, C)
     # valid correlation with reversed even/odd sub-filters
-    ev = lax.conv_general_dilated(lhs, fe, (1,), padding="VALID")
-    od = lax.conv_general_dilated(lhs, fo, (1,), padding="VALID")
+    ev = lax.conv_general_dilated(lhs, fe, (1,), padding="VALID",
+                                  precision=_HIGHEST)
+    od = lax.conv_general_dilated(lhs, fo, (1,), padding="VALID",
+                                  precision=_HIGHEST)
     out = jnp.stack([ev, od], axis=-1).reshape(-1, 1, 2 * (C - Fo2 + 1))
     return out[..., :O].reshape(*lead, O)
 

@@ -1,6 +1,6 @@
 """uv-cell sampling density and Briggs/robust imaging weights.
 
-TPU-native equivalents of the reference's numba kernels
+JAX equivalents of the reference's numba kernels
 (pfb/utils/weighting.py:43-171): the per-row scatter/gather loops become
 one vectorised XLA scatter-add over all (row, chan, stencil) triples and
 a vectorised gather.
@@ -62,13 +62,9 @@ def compute_counts(uvw, freq, mask, nx, ny, cellx, celly, k=6):
         yi = jnp.broadcast_to(y_idx[..., None, :], vals.shape)
         counts = counts.at[xi.reshape(-1), yi.reshape(-1)].add(
             vals.reshape(-1), mode="drop")
-        # A windowed (k, k)-block lax.scatter_add was tried here
-        # (round-5): numerically identical on a k-padded grid, but the
-        # TPU backend's compile of 2D-update-window scatters hangs for
-        # tens of minutes at production sizes. Production weighting
-        # runs the HOST path below (the reference's compute_counts is
-        # a CPU numba kernel too); this device path serves small /
-        # device-resident callers.
+        # Production weighting runs the HOST path below (the
+        # reference's compute_counts is a CPU numba kernel too); this
+        # device path serves small / device-resident callers.
     else:
         u_idx = jnp.floor(ug).astype(jnp.int32)
         v_idx = jnp.floor(vg).astype(jnp.int32)
@@ -83,11 +79,10 @@ def compute_counts_host(uvw, freq, mask, nx, ny, cellx, celly, k=6,
     workers' once-per-run weighting pass: a chunked flat-index
     np.bincount (C-speed) over the (row, chan, k, k) stencil values.
     The reference's counts kernel is likewise CPU code
-    (pfb/utils/weighting.py:43-103, numba prange); the device scatter
-    path is per-index-bound on TPU and its windowed-scatter variant
-    stalls the TPU compiler at production sizes (round-5 lab).
-    Identical per-tap drop semantics: out-of-grid taps are discarded.
-    ~1 s at 1M rows x 8 chan on the host."""
+    (pfb/utils/weighting.py:43-103, numba prange). The native C++
+    kernel (pfb_tpu/native) runs when a toolchain is available.
+    Identical per-tap drop semantics: out-of-grid taps are
+    discarded."""
     uvw = np.asarray(uvw)
     freq = np.asarray(freq)
     mask = np.asarray(mask)

@@ -1,7 +1,7 @@
 """ES-kernel w-stacking (de)gridder — the FFT-based measurement
 operator for large visibility counts.
 
-A from-scratch TPU-native implementation of the semantics the reference
+A from-scratch JAX implementation of the semantics the reference
 gets from ducc0.wgridder (pfb/operators/gridder.py:10): type-1/type-2
 NUFFT on an oversampled uv grid using the "exponential of semicircle"
 kernel
@@ -18,9 +18,9 @@ Conventions identical to pfb_tpu.ops.dft (the exact oracle):
     grid:   I   = sum_rc  wgt mask Re[vis exp(+2 pi i (...))]
 with pixel centres l_i = (i - nx//2) cell.
 
-The scatter/gather is XLA scatter-add over (row*chan, k, k) stencils,
-chunked over rows to bound memory. A Pallas kernel can replace the
-scatter without changing this interface.
+The scatter/gather is XLA scatter-add over (vis, k, k) stencils,
+chunked over visibilities to bound memory; every position is planned
+once on the host in float64 (:func:`wgrid_plan`).
 """
 
 from functools import partial
@@ -90,92 +90,83 @@ def _grid_setup(nx, ny, cellx, celly, sigma):
     return N_x, N_y
 
 
-@partial(jax.jit, static_argnames=("nx", "ny", "k", "Nx", "Ny",
-                                   "row_chunk", "nw", "do_wgridding"))
-def _spread(uvw, freq, vis_w, nx, ny, cellx, celly, k, beta, Nx, Ny,
-            row_chunk, do_wgridding, nw, w0, dw):
-    """Scatter visibilities onto the (nw, Nx, Ny) oversampled grid
-    stack. vis_w = wgt * mask * vis (complex)."""
-    nrow, nchan = vis_w.shape
-    scale = freq / LIGHTSPEED
-
-    nchunk = -(-nrow // row_chunk)
-    npad = nchunk * row_chunk - nrow
-    uvw_p = jnp.pad(uvw, ((0, npad), (0, 0)))
-    vr = jnp.pad(vis_w.real, ((0, npad), (0, 0)))
-    vi = jnp.pad(vis_w.imag, ((0, npad), (0, 0)))
-
-    ko2 = k / 2.0
+def _taps(f, beta, k):
+    """ES kernel weights at the k grid offsets around a rounded
+    position; ``f`` (n,) is the position minus its rounded value."""
     korig = (k - 1) // 2
-    offs = jnp.arange(-korig, k - korig)  # k offsets around rounded pos
+    offs = jnp.arange(-korig, k - korig, dtype=f.dtype)
+    return es_kernel((offs - f[:, None]) / (k / 2.0), beta, k)
 
-    def chunk_fn(carry, args):
+
+def _stencil(pos, beta, k, Nx, Ny, nw, do_w, dtype, pstart=0, nb=None):
+    """Per-visibility spreading stencil of one chunk: the (n, k, k)
+    uv kernel product, its wrapped grid indices and, with w-stacking,
+    the (n, k) w-tap weights and plane indices relative to the plane
+    block [pstart, pstart + nb) — ``nb`` (out of range) for taps that
+    fall outside it."""
+    u0, fu, v0, fv, p0, fw = pos
+    korig = (k - 1) // 2
+    offs = jnp.arange(-korig, k - korig, dtype=jnp.int32)
+    cu = _taps(fu.astype(dtype), beta, k)
+    cv = _taps(fv.astype(dtype), beta, k)
+    uv = cu[:, :, None] * cv[:, None, :]
+    xim = jnp.mod(u0[:, None] + offs, Nx)
+    yim = jnp.mod(v0[:, None] + offs, Ny)
+    if do_w:
+        nb = nw if nb is None else nb
+        cw = _taps(fw.astype(dtype), beta, k)
+        pic = jnp.clip(p0[:, None] + offs, 0, nw - 1) - pstart
+        pic = jnp.where((pic >= 0) & (pic < nb), pic, nb)
+    else:
+        cw = jnp.ones(u0.shape + (1,), dtype)
+        pic = jnp.zeros(u0.shape + (1,), jnp.int32)
+    return uv, xim, yim, cw, pic
+
+
+def _block_slice(arrays, lo, n, M):
+    """The M-entry window [lo, lo + M) of each flat array, with entries
+    past ``n`` zeroed (they belong to no visibility of the block)."""
+    valid = jnp.arange(M) < n
+    return tuple(jnp.where(valid, lax.dynamic_slice_in_dim(a, lo, M), 0)
+                 for a in arrays)
+
+
+@partial(jax.jit, static_argnames=("k", "Nx", "Ny", "nw", "nb", "do_w",
+                                   "chunk", "M"))
+def _spread(pos, vr, vi, beta, lo, n, pstart, *, k, Nx, Ny, nw, nb, do_w,
+            chunk, M):
+    """Scatter-add the weighted visibilities [lo, lo + n) of the flat
+    (plane-sorted) arrays onto the (nb, Nx, Ny) oversampled grid stack
+    of the planes [pstart, pstart + nb), as separate real and imaginary
+    grids. ``M`` (a multiple of ``chunk``) is the static window size."""
+    dtype = vr.dtype
+    nck = M // chunk
+    blk = _block_slice(tuple(pos) + (vr, vi), lo, n, M)
+
+    def body(carry, a):
         gr, gi = carry
-        uvw_c, vr_c, vi_c = args
-        # continuous grid positions (cycles per pixel * N)
-        ul = uvw_c[:, 0:1] * scale[None, :] * cellx * Nx  # (R, nchan)
-        vl = uvw_c[:, 1:2] * scale[None, :] * celly * Ny
-        wl = uvw_c[:, 2:3] * scale[None, :]
-
-        u0 = jnp.round(ul).astype(jnp.int32)
-        v0 = jnp.round(vl).astype(jnp.int32)
-        xi = u0[..., None] + offs  # (R, nchan, k)
-        yi = v0[..., None] + offs
-        cu = es_kernel((xi - ul[..., None]) / ko2, beta, k)
-        cv = es_kernel((yi - vl[..., None]) / ko2, beta, k)
-
-        xim = jnp.mod(xi, Nx)
-        yim = jnp.mod(yi, Ny)
-
-        if do_wgridding:
-            wpos = (wl - w0) / dw  # (R, nchan)
-            p0 = jnp.round(wpos).astype(jnp.int32)
-            woffs = offs
-            pi = p0[..., None] + woffs  # (R, nchan, k)
-            cw = es_kernel((pi - wpos[..., None]) / ko2, beta, k)
-            pic = jnp.clip(pi, 0, nw - 1)
-            # combined stencil (R, nchan, k, k, k) would be huge;
-            # loop the w support in Python (k is small & static)
-            for t in range(k):
-                cwt = cw[..., t]
-                pit = pic[..., t]
-                val = (cwt[..., None, None] * cu[..., :, None] *
-                       cv[..., None, :])
-                vr_s = val * vr_c[..., None, None]
-                vi_s = val * vi_c[..., None, None]
-                pidx = jnp.broadcast_to(pit[..., None, None],
-                                        vr_s.shape).reshape(-1)
-                xidx = jnp.broadcast_to(xim[..., :, None],
-                                        vr_s.shape).reshape(-1)
-                yidx = jnp.broadcast_to(yim[..., None, :],
-                                        vr_s.shape).reshape(-1)
-                gr = gr.at[pidx, xidx, yidx].add(vr_s.reshape(-1),
-                                                 mode="drop")
-                gi = gi.at[pidx, xidx, yidx].add(vi_s.reshape(-1),
-                                                 mode="drop")
-        else:
-            val = cu[..., :, None] * cv[..., None, :]
-            vr_s = val * vr_c[..., None, None]
-            vi_s = val * vi_c[..., None, None]
-            xidx = jnp.broadcast_to(xim[..., :, None],
-                                    vr_s.shape).reshape(-1)
-            yidx = jnp.broadcast_to(yim[..., None, :],
-                                    vr_s.shape).reshape(-1)
-            zidx = jnp.zeros_like(xidx)
-            gr = gr.at[zidx, xidx, yidx].add(vr_s.reshape(-1),
-                                             mode="drop")
-            gi = gi.at[zidx, xidx, yidx].add(vi_s.reshape(-1),
-                                             mode="drop")
+        pos_c, vrc, vic = a[:6], a[6], a[7]
+        uv, xim, yim, cw, pic = _stencil(pos_c, beta, k, Nx, Ny, nw,
+                                         do_w, dtype, pstart, nb)
+        shape = uv.shape
+        xidx = jnp.broadcast_to(xim[:, :, None], shape).reshape(-1)
+        yidx = jnp.broadcast_to(yim[:, None, :], shape).reshape(-1)
+        # the w taps loop in Python (k is small and static): the full
+        # (n, k, k, k) stencil would be k times the memory
+        for t in range(cw.shape[1]):
+            val = uv * cw[:, t, None, None]
+            pidx = jnp.broadcast_to(pic[:, t, None, None],
+                                    shape).reshape(-1)
+            gr = gr.at[pidx, xidx, yidx].add(
+                (val * vrc[:, None, None]).reshape(-1), mode="drop")
+            gi = gi.at[pidx, xidx, yidx].add(
+                (val * vic[:, None, None]).reshape(-1), mode="drop")
         return (gr, gi), None
 
-    rdtype = vis_w.real.dtype
-    grid0 = (jnp.zeros((nw, Nx, Ny), rdtype),
-             jnp.zeros((nw, Nx, Ny), rdtype))
-    (gr, gi), _ = lax.scan(
-        chunk_fn, grid0,
-        (uvw_p.reshape(nchunk, row_chunk, 3),
-         vr.reshape(nchunk, row_chunk, nchan),
-         vi.reshape(nchunk, row_chunk, nchan)))
+    grid0 = (jnp.zeros((nb, Nx, Ny), dtype),
+             jnp.zeros((nb, Nx, Ny), dtype))
+    xs = tuple(a.reshape(nck, chunk) for a in blk)
+    (gr, gi), _ = lax.scan(body, grid0, xs)
     return gr, gi
 
 
@@ -199,115 +190,189 @@ def _w_params(uvw, freq, nm1_min, sigma, k):
     return nw, float(w0), float(dw)
 
 
-def _centre_shift(uvw, freq, x0, y0, sign):
-    """Phase factor e^{sign*2 pi i (u x0 + v y0)} per (row, chan) —
-    moves the image centre without touching the uv kernel positions."""
-    scale = freq / LIGHTSPEED
-    ph = (uvw[:, 0:1] * x0 + uvw[:, 1:2] * y0) * scale[None, :]
-    ph = sign * 2.0 * jnp.pi * (ph - jnp.round(ph))
-    return jax.lax.complex(jnp.cos(ph), jnp.sin(ph))
+def shift_phasor(uvw, freq, x0, y0, dtype, device=None):
+    """(cos, sin) of 2 pi (u x0 + v y0) f/c per (row, chan), evaluated
+    on the host in float64 — the phase that moves the image centre to
+    (x0, y0) without touching the uv kernel positions — or None when
+    the centre is not shifted."""
+    if not (x0 or y0):
+        return None
+    uvw = np.asarray(uvw, np.float64)
+    scale = np.asarray(freq, np.float64)[None, :] / LIGHTSPEED
+    ph = 2.0 * np.pi * (uvw[:, 0:1] * x0 + uvw[:, 1:2] * y0) * scale
+    return (jax.device_put(np.cos(ph).astype(dtype), device),
+            jax.device_put(np.sin(ph).astype(dtype), device))
 
 
-def vis2dirty_wgrid(uvw, freq, vis, wgt=None, mask=None, *, nx, ny,
-                    cellx, celly, x0=0.0, y0=0.0, epsilon=1e-7,
-                    do_wgridding=True, sigma=2.0, row_chunk=2048,
-                    divide_by_n=False, double_accum=False,
-                    fft_engine="auto"):
-    """R.H: visibilities -> dirty image via w-stacked ES gridding.
-    ``vis`` may be a (real, imag) pair (assembled eagerly — this is
-    the CPU-parity engine; on-accelerator paths use the pg/dft
-    backends which stay split throughout)."""
-    import jax
-
-    if isinstance(vis, (tuple, list)):
-        vis = jnp.asarray(vis[0]) + 1j * jnp.asarray(vis[1])
-
-    k, beta = kernel_params(epsilon)
-    Nx, Ny = _grid_setup(nx, ny, cellx, celly, sigma)
-    rdtype = jnp.finfo(vis.dtype).dtype
-
-    w = jnp.ones(vis.shape, rdtype) if wgt is None else wgt
-    if mask is not None:
-        w = w * mask
-    vis_w = vis * w
-    # gridding.yml double-accum: spread/accumulate in f64 for f32
-    # inputs (CPU/x64 only — TPU has no f64)
-    if (double_accum and jax.config.jax_enable_x64
-            and rdtype == jnp.float32):
-        vis_w = vis_w.astype(jnp.complex128)
-        rdtype_out = jnp.float32
-    else:
-        rdtype_out = None
-    if x0 or y0:
-        vis_w = vis_w * _centre_shift(uvw, freq, x0, y0, +1.0)
-
-    # n-1 over the image (host-side scalars for plane setup)
+def _nm1_min(nx, ny, cellx, celly, x0, y0):
+    """Most negative n - 1 over the image (host scalar)."""
     l = (np.arange(nx) - nx // 2) * cellx + x0
     m = (np.arange(ny) - ny // 2) * celly + y0
     eps_max = max(abs(l.min()), l.max()) ** 2 + \
         max(abs(m.min()), m.max()) ** 2
-    nm1_min = -eps_max / (np.sqrt(max(1.0 - eps_max, 0.0)) + 1.0)
+    return -eps_max / (np.sqrt(max(1.0 - eps_max, 0.0)) + 1.0)
 
+
+# device bytes one w-plane block of the grid stack (real + imaginary)
+# may take; the planes beyond it are gridded block by block
+GRID_BLOCK_BYTES = 16 << 30
+# visibilities per scatter/gather step (bounds the stencil temporaries)
+VIS_CHUNK = 16384
+
+
+def wgrid_plan(uvw, freq, *, nx, ny, cellx, celly, epsilon=1e-7,
+               do_wgridding=True, sigma=2.0, x0=0.0, y0=0.0,
+               dtype=None, device=None):
+    """Reusable plan of the scatter-add gridder: geometry, w planes and
+    every visibility's grid position, computed once on the host in
+    float64 and split into an integer cell and a fraction. Only the
+    fraction (|f| <= 0.5) reaches the device in ``dtype``, so a float32
+    device run keeps the positions to ~1e-8 cells; positions computed
+    on the device in float32 would be off by ~1e-3 cells at 4096^2.
+
+    The w planes are gridded in blocks of as many planes as fit
+    GRID_BLOCK_BYTES (whole FFT batches of 4 beyond 4): the
+    visibilities are sorted by base plane on the host, so each block
+    reads one contiguous window of those touching it, and only one
+    block's grid stack is ever on the device — at 8192^2 (the PSF of a
+    4096^2 image) the all-planes stack would not fit one card.
+    ``device``
+    commits the plan's arrays to one device (the band-sharded Hessian
+    keeps each band's plan on its own card)."""
+    if dtype is None:
+        dtype = jnp.zeros(0).dtype  # honours jax_enable_x64
+    k, beta = kernel_params(epsilon)
+    Nx, Ny = _grid_setup(nx, ny, cellx, celly, sigma)
+    uvw = np.asarray(uvw, np.float64)
+    freq = np.asarray(freq, np.float64)
     if do_wgridding:
-        nw, w0, dw = _w_params(np.asarray(uvw), np.asarray(freq),
-                               nm1_min, sigma, k)
+        nw, w0, dw = _w_params(uvw, freq, _nm1_min(nx, ny, cellx, celly,
+                                                   x0, y0), sigma, k)
     else:
         nw, w0, dw = 1, 0.0, 1.0
+    do_w = nw > 1
+    scale = freq[None, :] / LIGHTSPEED
+    nrow, nchan = uvw.shape[0], freq.size
+    nvis = nrow * nchan
 
-    gr, gi = _spread(uvw, freq, vis_w, nx, ny, cellx, celly, k,
-                     beta, Nx, Ny, row_chunk, do_wgridding and nw > 1,
-                     nw, w0, dw)
-    if rdtype_out is not None:  # double-accum: back to f32 post-spread
-        gr = gr.astype(rdtype_out)
-        gi = gi.astype(rdtype_out)
-    return _grid_to_image(gr, gi, nx, ny, cellx, celly, k, beta, Nx, Ny,
-                          do_wgridding and nw > 1, nw, w0, dw,
-                          divide_by_n, x0, y0, fft_engine=fft_engine)
+    def split(a):
+        a0 = np.round(a)
+        return a0.astype(np.int32).ravel(), (a - a0).ravel()
+
+    u0, fu = split(uvw[:, 0:1] * scale * cellx * Nx)
+    v0, fv = split(uvw[:, 1:2] * scale * celly * Ny)
+    if do_w:
+        p0, fw = split((uvw[:, 2:3] * scale - w0) / dw)
+    else:
+        p0, fw = np.zeros(nvis, np.int32), np.zeros(nvis)
+
+    plane_bytes = 2 * Nx * Ny * np.dtype(dtype).itemsize
+    nb = max(1, GRID_BLOCK_BYTES // plane_bytes)
+    if nb > 4:  # whole FFT batches (_grid_to_image's wchunk)
+        nb -= nb % 4
+    nb = int(min(nb, nw))
+    nblk = -(-nw // nb)
+    order = None
+    if nblk > 1:
+        # sort by base plane: the visibilities whose k taps touch a
+        # block are then one contiguous window
+        order = np.argsort(p0, kind="stable")
+        u0, fu, v0, fv, p0, fw = (a[order] for a in (u0, fu, v0, fv,
+                                                      p0, fw))
+        korig = (k - 1) // 2
+        starts = np.arange(nblk) * nb
+        lo = np.searchsorted(p0, starts - (k - 1 - korig), "left")
+        hi = np.searchsorted(p0, starts + nb - 1 + korig, "right")
+    else:
+        starts, lo, hi = np.zeros(1, int), np.zeros(1, int), \
+            np.full(1, nvis)
+    chunk = VIS_CHUNK
+    M = max(chunk, -(-int((hi - lo).max()) // chunk) * chunk)
+    total = max(nvis, int(lo.max()) + M)
+
+    def put(a, dt):
+        a = np.pad(a, (0, total - a.size)).astype(dt)
+        return jax.device_put(a, device)
+
+    pos = tuple(put(a, np.int32 if a.dtype == np.int32 else dtype)
+                for a in (u0, fu, v0, fv, p0, fw))
+    consts = jax.device_put(
+        gi_consts(nx, ny, cellx, celly, k, beta, Nx, Ny, do_w, dw, x0,
+                  y0, rdtype=dtype), device)
+    return dict(k=k, beta=beta, Nx=Nx, Ny=Ny, nw=nw, w0=w0, dw=dw,
+                do_w=do_w, nx=nx, ny=ny, cellx=cellx, celly=celly,
+                x0=x0, y0=y0, nrow=nrow, nchan=nchan, chunk=chunk,
+                rdtype=np.dtype(dtype), pos=pos, nb=nb, M=M, total=total,
+                blocks=[(int(s_), int(l_), int(h_ - l_))
+                        for s_, l_, h_ in zip(starts, lo, hi)],
+                order=None if order is None
+                else jax.device_put(order.astype(np.int32), device),
+                shift=shift_phasor(uvw, freq, x0, y0, dtype, device),
+                consts=consts)
+
+
+def vis2dirty_wgrid(uvw, freq, vis, wgt=None, mask=None, *, nx, ny,
+                    cellx, celly, x0=0.0, y0=0.0, epsilon=1e-7,
+                    do_wgridding=True, sigma=2.0, divide_by_n=False,
+                    double_accum=False, plan=None):
+    """R.H: visibilities -> dirty image via w-stacked ES gridding.
+    ``vis`` may be complex or a (real, imag) pair. Pass
+    plan=wgrid_plan(...) to reuse the geometry across calls."""
+    p = plan or wgrid_plan(uvw, freq, nx=nx, ny=ny, cellx=cellx,
+                           celly=celly, epsilon=epsilon,
+                           do_wgridding=do_wgridding, sigma=sigma,
+                           x0=x0, y0=y0)
+    if isinstance(vis, (tuple, list)):
+        vr, vi = jnp.asarray(vis[0]), jnp.asarray(vis[1])
+    else:
+        vis = jnp.asarray(vis)
+        vr, vi = jnp.real(vis), jnp.imag(vis)
+    rdtype = vr.dtype
+    w = jnp.ones(vr.shape, rdtype) if wgt is None else \
+        jnp.asarray(wgt, rdtype)
+    if mask is not None:
+        w = w * jnp.asarray(mask, rdtype)
+    vr, vi = vr * w, vi * w
+    if p["shift"] is not None:
+        sr, si = p["shift"]
+        vr, vi = vr * sr - vi * si, vr * si + vi * sr
+    # gridding.yml double-accum: spread/accumulate in f64 for f32
+    # inputs (only where x64 is enabled)
+    if (double_accum and jax.config.jax_enable_x64
+            and rdtype == jnp.float32):
+        vr, vi = vr.astype(jnp.float64), vi.astype(jnp.float64)
+    vr, vi = vr.ravel(), vi.ravel()
+    if p["order"] is not None:
+        vr, vi = vr[p["order"]], vi[p["order"]]
+    npad = p["total"] - vr.size
+    vr, vi = jnp.pad(vr, (0, npad)), jnp.pad(vi, (0, npad))
+    consts = p["consts"] if rdtype == p["rdtype"] else None
+    img = None
+    for pstart, lo, n in p["blocks"]:
+        gr, gi = _spread(p["pos"], vr, vi, p["beta"], lo, n, pstart,
+                         k=p["k"], Nx=p["Nx"], Ny=p["Ny"], nw=p["nw"],
+                         nb=p["nb"], do_w=p["do_w"], chunk=p["chunk"],
+                         M=p["M"])
+        part = _grid_to_image(
+            gr.astype(rdtype), gi.astype(rdtype), nx, ny, p["cellx"],
+            p["celly"], p["k"], p["beta"], p["Nx"], p["Ny"], p["do_w"],
+            p["nb"], p["w0"] + pstart * p["dw"], p["dw"], divide_by_n,
+            p["x0"], p["y0"], consts=consts)
+        img = part if img is None else img + part
+    return img
 
 
 def _ifft2_stack(gr, gi):
-    """Unnormalised inverse 2D FFT of a (..., N, N) real/imag pair.
-
-    f32 runs on the MXU via the four-step matmul FFT (XLA's TPU FFT is
-    far off the roofline at these sizes — see ops/mmfft.py); f64 (the
-    CPU-parity path) keeps the exact jnp.fft."""
-    if gr.dtype == jnp.float32:
-        from pfb_tpu.ops.mmfft import fft2_mm
-        # unnormalised inverse = conj(forward(conj(.)))
-        yr, yi = fft2_mm(gr, -gi, inverse=False)
-        return yr, -yi
+    """Unnormalised inverse 2D FFT of a (..., N, N) real/imag pair."""
     full = jnp.fft.ifft2(lax.complex(gr, gi)) * \
         (gr.shape[-2] * gr.shape[-1])
     return full.real, full.imag
 
 
 def _fft2_stack(xr, xi):
-    """Forward 2D FFT of a (..., N, N) real/imag pair (f32 on the MXU,
-    f64 exact)."""
-    if xr.dtype == jnp.float32:
-        from pfb_tpu.ops.mmfft import fft2_mm
-        return fft2_mm(xr, xi, inverse=False)
+    """Forward 2D FFT of a (..., N, N) real/imag pair."""
     full = jnp.fft.fft2(lax.complex(xr, xi))
     return full.real, full.imag
-
-
-def _resolve_cfft(fft_engine, rdtype, nx, ny, Nx, Ny):
-    """Pick the w-plane FFT engine: the pruned c2c Pallas pipeline
-    (ops/pallas_cfft.py — pad/roll/crop absorbed into the stage
-    constants) on f32 sigma=2 layouts, else the mm/jnp stack. Returns
-    None (legacy path) or the pallas interpret flag."""
-    import jax
-
-    from pfb_tpu.ops.pallas_cfft import cfft_supported
-    ok = (rdtype == jnp.float32 and Nx == 2 * nx and Ny == 2 * ny
-          and nx % 128 == 0 and ny % 128 == 0 and cfft_supported(Nx)
-          and cfft_supported(Ny))
-    if fft_engine == "mm" or not ok:
-        return None
-    on_tpu = jax.default_backend() == "tpu"
-    if fft_engine == "cfft":
-        return not on_tpu
-    return False if on_tpu else None  # auto
 
 
 @partial(jax.jit, static_argnames=("nx", "ny", "k", "Nx", "Ny",
@@ -316,11 +381,9 @@ def gi_consts(nx, ny, cellx, celly, k, beta, Nx, Ny, do_w, dw,
               x0=0.0, y0=0.0, rdtype=jnp.float32):
     """Plan-invariant grid-correction / w-screen constants shared by
     :func:`_grid_to_image` and :func:`_image_to_grid`. These depend on
-    the plan geometry only (NOT on the per-block w0), and the cw
-    kernel-FT quadrature alone costs ~20 ms per call at 4096^2
-    (64-point Gauss-Legendre over the full image) — precompute once
-    per plan and hoist out of w-block scans (round-4 g2i lab:
-    grid_to_image 60.1 ms of which only ~27 ms was the FFT)."""
+    the plan geometry only; the cw kernel-FT quadrature is a
+    64-point Gauss-Legendre sum over the full image, so callers that
+    reuse a plan can compute them once and pass them in."""
     li = (jnp.arange(nx) - nx // 2)
     mi = (jnp.arange(ny) - ny // 2)
     cx = _es_kernel_ft(li / Nx, beta, k).astype(rdtype)
@@ -346,14 +409,11 @@ def gi_consts(nx, ny, cellx, celly, k, beta, Nx, Ny, do_w, dw,
 
 @partial(jax.jit, static_argnames=("nx", "ny", "k", "Nx", "Ny", "nw",
                                    "do_w", "divide_by_n", "x0", "y0",
-                                   "wchunk", "fft_engine",
-                                   "cfft_precision"))
+                                   "wchunk"))
 def _grid_to_image(gr, gi, nx, ny, cellx, celly, k, beta, Nx, Ny, do_w,
                    nw, w0, dw, divide_by_n, x0=0.0, y0=0.0, wchunk=4,
-                   fft_engine="auto", consts=None,
-                   cfft_precision=None):
+                   consts=None):
     rdtype = gr.dtype
-    cfft_interp = _resolve_cfft(fft_engine, rdtype, nx, ny, Nx, Ny)
 
     if consts is None:
         consts = gi_consts(nx, ny, cellx, celly, k, beta, Nx, Ny,
@@ -370,7 +430,7 @@ def _grid_to_image(gr, gi, nx, ny, cellx, celly, k, beta, Nx, Ny, do_w,
         return ir, ii
 
     if do_w:
-        # batches of wchunk planes: batched MXU FFTs, then only the
+        # batches of wchunk planes: batched FFTs, then only the
         # REAL part of sum_p img_p e^{+2 pi i w_p (n-1)} is accumulated
         # (the imaginary part of the final image is discarded anyway)
         wc = min(wchunk, nw)
@@ -381,47 +441,13 @@ def _grid_to_image(gr, gi, nx, ny, cellx, celly, k, beta, Nx, Ny, do_w,
         wp = w0 + dw * jnp.arange(nc * wc, dtype=rdtype)
         img0 = jnp.zeros((nx, ny), rdtype)
 
-        if rdtype == jnp.float32 and cfft_interp is not None:
-            # pruned c2c Pallas pipeline: ALL planes in one batched
-            # dispatch, crop/roll absorbed into the stage constants
-            # (ops/pallas_cfft.py), then the phasor-rotation screen
-            # recurrence over the (nw, nx, ny) stack
-            from pfb_tpu.ops.pallas_cfft import fft2_c2c_pruned
-            ir, ii = fft2_c2c_pruned(gr, gi, Nx=Nx, Ny=Ny,
-                                     inverse=True, pruned_out=True,
-                                     interpret=cfft_interp,
-                                     precision=cfft_precision)
-            tpi = jnp.asarray(2.0 * jnp.pi, rdtype)
-            c0 = jnp.cos(tpi * w0 * nm1)
-            s0 = jnp.sin(tpi * w0 * nm1)
-            cd, sd = consts["cd"], consts["sd"]
-
-            if nw <= 8:
-                # unrolled: XLA fuses the whole accumulation into ~one
-                # pass over the plane stack (a lax.scan carry of the
-                # full image forced a round trip per plane: 7.6 ms at
-                # 8192^2 B=4, round-4 g2i lab)
-                img, c, sn = img0, c0, s0
-                for p_ in range(nw):
-                    img = img + ir[p_] * c - ii[p_] * sn
-                    c, sn = c * cd - sn * sd, sn * cd + c * sd
-            else:
-                def accum_c(carry, args):
-                    img_a, c, sn = carry
-                    irp, iip = args
-                    img_a = img_a + irp * c - iip * sn
-                    return (img_a, c * cd - sn * sd,
-                            sn * cd + c * sd), None
-
-                (img, _, _), _ = lax.scan(accum_c, (img0, c0, s0),
-                                          (ir, ii))
-        elif rdtype == jnp.float32:
-            # f32 chip path: the per-plane w-screen cos/sin over the
+        if rdtype == jnp.float32:
+            # f32 path: the per-plane w-screen cos/sin over the
             # image (nw transcendental passes) is replaced by a phasor
             # ROTATION recurrence — two cos/sin images total (w0 and
-            # dw), then 4 mul + 2 add per plane on the VPU. Rotation
+            # dw), then 4 mul + 2 add per plane. Rotation
             # drift is ~nw*2^-24 ~ 2e-6 relative at nw~30, below the
-            # f32 gridder accuracy floor (eps>=1e-5 on chip); the
+            # f32 gridder accuracy floor (eps >= 1e-5 in f32); the
             # f64/CPU parity path below keeps exact per-plane phases.
             tpi = jnp.asarray(2.0 * jnp.pi, rdtype)
             c0 = jnp.cos(tpi * w0 * nm1)
@@ -455,13 +481,6 @@ def _grid_to_image(gr, gi, nx, ny, cellx, celly, k, beta, Nx, Ny, do_w,
                 (grp.reshape(nc, wc, Nx, Ny),
                  gip.reshape(nc, wc, Nx, Ny), wp.reshape(nc, wc)))
         img = img / consts["cw"]
-    elif cfft_interp is not None:
-        from pfb_tpu.ops.pallas_cfft import fft2_c2c_pruned
-        ir, _ = fft2_c2c_pruned(gr[:1], gi[:1], Nx=Nx, Ny=Ny,
-                                inverse=True, pruned_out=True,
-                                interpret=cfft_interp,
-                                     precision=cfft_precision)
-        img = ir[0]
     else:
         img, _ = plane_images(gr[0], gi[0])
 
@@ -473,50 +492,55 @@ def _grid_to_image(gr, gi, nx, ny, cellx, celly, k, beta, Nx, Ny, do_w,
 
 def dirty2vis_wgrid(uvw, freq, image, cellx, celly, x0=0.0, y0=0.0, *,
                     epsilon=1e-7, do_wgridding=True, sigma=2.0,
-                    row_chunk=2048, divide_by_n=False,
-                    fft_engine="auto", **kw):
+                    divide_by_n=False, plan=None, split=False, **kw):
     """R: image -> visibilities (adjoint chain of vis2dirty_wgrid with
-    the conjugate kernel: e^{-2 pi i(...)})."""
+    the conjugate kernel: e^{-2 pi i(...)}). Returns complex
+    (nrow, nchan) visibilities, or a (real, imag) pair when
+    ``split``."""
     nx, ny = image.shape
-    k, beta = kernel_params(epsilon)
-    Nx, Ny = _grid_setup(nx, ny, cellx, celly, sigma)
-
-    l = (np.arange(nx) - nx // 2) * cellx + x0
-    m = (np.arange(ny) - ny // 2) * celly + y0
-    eps_max = max(abs(l.min()), l.max()) ** 2 + \
-        max(abs(m.min()), m.max()) ** 2
-    nm1_min = -eps_max / (np.sqrt(max(1.0 - eps_max, 0.0)) + 1.0)
-    if do_wgridding:
-        nw, w0, dw = _w_params(np.asarray(uvw), np.asarray(freq),
-                               nm1_min, sigma, k)
-    else:
-        nw, w0, dw = 1, 0.0, 1.0
-
-    grids = _image_to_grid(image, nx, ny, cellx, celly, k, beta, Nx, Ny,
-                           do_wgridding and nw > 1, nw, w0, dw,
-                           divide_by_n, x0, y0, fft_engine=fft_engine)
-    vis = _interp(grids, uvw, freq, cellx, celly, k, beta, Nx, Ny,
-                  row_chunk, do_wgridding and nw > 1, nw, w0, dw)
-    if x0 or y0:
-        vis = vis * _centre_shift(uvw, freq, x0, y0, -1.0)
-    if kw.get("split"):
-        return vis.real, vis.imag
-    return vis
+    p = plan or wgrid_plan(uvw, freq, nx=nx, ny=ny, cellx=cellx,
+                           celly=celly, epsilon=epsilon,
+                           do_wgridding=do_wgridding, sigma=sigma,
+                           x0=x0, y0=y0)
+    image = jnp.asarray(image)
+    consts = p["consts"] if image.dtype == p["rdtype"] else None
+    fr = jnp.zeros(p["total"], image.dtype)
+    fi = jnp.zeros(p["total"], image.dtype)
+    for pstart, lo, n in p["blocks"]:
+        gr, gi = _image_to_grid(image, nx, ny, p["cellx"], p["celly"],
+                                p["k"], p["beta"], p["Nx"], p["Ny"],
+                                p["do_w"], p["nb"],
+                                p["w0"] + pstart * p["dw"], p["dw"],
+                                divide_by_n, p["x0"], p["y0"],
+                                split=True, consts=consts)
+        fr, fi = _interp(p["pos"], gr, gi, p["beta"], lo, n, pstart, fr,
+                         fi, k=p["k"], Nx=p["Nx"], Ny=p["Ny"],
+                         nw=p["nw"], nb=p["nb"], do_w=p["do_w"],
+                         chunk=p["chunk"], M=p["M"])
+    nvis = p["nrow"] * p["nchan"]
+    if p["order"] is not None:
+        fr = jnp.zeros(nvis, fr.dtype).at[p["order"]].set(fr[:nvis])
+        fi = jnp.zeros(nvis, fi.dtype).at[p["order"]].set(fi[:nvis])
+    fr = fr[:nvis].reshape(p["nrow"], p["nchan"])
+    fi = fi[:nvis].reshape(p["nrow"], p["nchan"])
+    if p["shift"] is not None:
+        sr, si = p["shift"]
+        fr, fi = fr * sr + fi * si, fi * sr - fr * si
+    if split:
+        return fr, fi
+    return lax.complex(fr, fi)
 
 
 @partial(jax.jit, static_argnames=("nx", "ny", "k", "Nx", "Ny", "nw",
                                    "do_w", "divide_by_n", "x0", "y0",
-                                   "split", "wchunk", "fft_engine",
-                                   "cfft_precision"))
+                                   "split", "wchunk"))
 def _image_to_grid(image, nx, ny, cellx, celly, k, beta, Nx, Ny, do_w,
                    nw, w0, dw, divide_by_n, x0=0.0, y0=0.0,
-                   split=False, wchunk=4, fft_engine="auto",
-                   consts=None, cfft_precision=None):
+                   split=False, wchunk=4, consts=None):
     """split=True returns (real, imag) grids as two real arrays (the
     native representation — complex is only assembled on request for
     the wgrid backend's _interp)."""
     rdtype = image.dtype
-    cfft_interp = _resolve_cfft(fft_engine, rdtype, nx, ny, Nx, Ny)
 
     if consts is None:
         consts = gi_consts(nx, ny, cellx, celly, k, beta, Nx, Ny,
@@ -545,28 +569,8 @@ def _image_to_grid(image, nx, ny, cellx, celly, k, beta, Nx, Ny, do_w,
         wp = w0 + dw * jnp.arange(nc * wc, dtype=rdtype)
 
         # batches of wchunk planes: phase the image onto each plane and
-        # run one batched MXU FFT per chunk
-        if rdtype == jnp.float32 and cfft_interp is not None:
-            # build all nw phasored planes by rotation recurrence,
-            # then ONE input-pruned batched c2c Pallas FFT (the
-            # embed+roll is absorbed into the stage constants)
-            from pfb_tpu.ops.pallas_cfft import fft2_c2c_pruned
-            tpi = jnp.asarray(2.0 * jnp.pi, rdtype)
-            c0 = jnp.cos(tpi * w0 * nm1)
-            s0 = jnp.sin(tpi * w0 * nm1)
-            cd, sd = consts["cd"], consts["sd"]
-
-            def one_c(carry, _):
-                c, s = carry
-                return (c * cd - s * sd, s * cd + c * sd), \
-                    (img * c, img * (-s))
-
-            _, (prs, pis) = lax.scan(one_c, (c0, s0), None, length=nw)
-            gr, gi = fft2_c2c_pruned(prs, pis, Nx=Nx, Ny=Ny,
-                                     inverse=False, pruned_in=True,
-                                     interpret=cfft_interp,
-                                     precision=cfft_precision)
-        elif rdtype == jnp.float32:
+        # run one batched FFT per chunk
+        if rdtype == jnp.float32:
             # phasor-rotation recurrence (see _grid_to_image): phase
             # here is e^{-2 pi i w_p (n-1)} = (c_p, -s_p)
             tpi = jnp.asarray(2.0 * jnp.pi, rdtype)
@@ -596,13 +600,6 @@ def _image_to_grid(image, nx, ny, cellx, celly, k, beta, Nx, Ny, do_w,
         if gr.ndim == 4:  # chunked scans emit (nc, wc, Nx, Ny)
             gr = gr.reshape(nc * wc, Nx, Ny)[:nw]
             gi = gi.reshape(nc * wc, Nx, Ny)[:nw]
-    elif cfft_interp is not None:
-        from pfb_tpu.ops.pallas_cfft import fft2_c2c_pruned
-        gr, gi = fft2_c2c_pruned(img[None], jnp.zeros_like(img)[None],
-                                 Nx=Nx, Ny=Ny, inverse=False,
-                                 pruned_in=True,
-                                 interpret=cfft_interp,
-                                     precision=cfft_precision)
     else:
         gr, gi = plane_grids(img[None], jnp.zeros_like(img)[None])
 
@@ -611,52 +608,38 @@ def _image_to_grid(image, nx, ny, cellx, celly, k, beta, Nx, Ny, do_w,
     return lax.complex(gr, gi)
 
 
-@partial(jax.jit, static_argnames=("k", "Nx", "Ny", "row_chunk", "nw",
-                                   "do_w"))
-def _interp(grids, uvw, freq, cellx, celly, k, beta, Nx, Ny, row_chunk,
-            do_w, nw, w0, dw):
-    nrow = uvw.shape[0]
-    nchan = freq.shape[0]
-    scale = freq / LIGHTSPEED
-    ko2 = k / 2.0
-    korig = (k - 1) // 2
-    offs = jnp.arange(-korig, k - korig)
+@partial(jax.jit, static_argnames=("k", "Nx", "Ny", "nw", "nb", "do_w",
+                                   "chunk", "M"), donate_argnums=(7, 8))
+def _interp(pos, gr, gi, beta, lo, n, pstart, fr, fi, *, k, Nx, Ny, nw,
+            nb, do_w, chunk, M):
+    """Gather twin of :func:`_spread`: adds the contributions of the
+    (nb, Nx, Ny) real and imaginary grid stacks of the planes
+    [pstart, pstart + nb) to the visibilities [lo, lo + n) of the flat
+    (plane-sorted) accumulators ``fr``/``fi``."""
+    dtype = gr.dtype
+    nck = M // chunk
+    blk = _block_slice(tuple(pos), lo, n, M)
 
-    nchunk = -(-nrow // row_chunk)
-    npad = nchunk * row_chunk - nrow
-    uvw_p = jnp.pad(uvw, ((0, npad), (0, 0)))
+    def chunk_fn(pos_c):
+        uv, xim, yim, cw, pic = _stencil(pos_c, beta, k, Nx, Ny, nw,
+                                         do_w, dtype, pstart, nb)
+        accr = jnp.zeros(uv.shape[:1], dtype)
+        acci = jnp.zeros(uv.shape[:1], dtype)
+        for t in range(cw.shape[1]):
+            inside = pic[:, t] < nb
+            ix = (jnp.where(inside, pic[:, t], 0)[:, None, None],
+                  xim[:, :, None], yim[:, None, :])
+            val = uv * jnp.where(inside, cw[:, t], 0)[:, None, None]
+            accr = accr + jnp.sum(gr[ix] * val, axis=(1, 2))
+            acci = acci + jnp.sum(gi[ix] * val, axis=(1, 2))
+        return accr, acci
 
-    def chunk_fn(uvw_c):
-        ul = uvw_c[:, 0:1] * scale[None, :] * cellx * Nx
-        vl = uvw_c[:, 1:2] * scale[None, :] * celly * Ny
-        wl = uvw_c[:, 2:3] * scale[None, :]
-        u0 = jnp.round(ul).astype(jnp.int32)
-        v0 = jnp.round(vl).astype(jnp.int32)
-        xi = u0[..., None] + offs
-        yi = v0[..., None] + offs
-        cu = es_kernel((xi - ul[..., None]) / ko2, beta, k)
-        cv = es_kernel((yi - vl[..., None]) / ko2, beta, k)
-        xim = jnp.mod(xi, Nx)
-        yim = jnp.mod(yi, Ny)
-
-        if do_w:
-            wpos = (wl - w0) / dw
-            p0 = jnp.round(wpos).astype(jnp.int32)
-            pi = p0[..., None] + offs
-            cw = es_kernel((pi - wpos[..., None]) / ko2, beta, k)
-            pic = jnp.clip(pi, 0, nw - 1)
-            acc = None
-            for t in range(k):
-                patch = grids[pic[..., t][..., None, None],
-                              xim[..., :, None], yim[..., None, :]]
-                contrib = jnp.sum(
-                    patch * (cu[..., :, None] * cv[..., None, :]),
-                    axis=(-2, -1)) * cw[..., t]
-                acc = contrib if acc is None else acc + contrib
-            return acc
-        patch = grids[0][xim[..., :, None], yim[..., None, :]]
-        return jnp.sum(patch * (cu[..., :, None] * cv[..., None, :]),
-                       axis=(-2, -1))
-
-    vis = lax.map(chunk_fn, uvw_p.reshape(nchunk, row_chunk, 3))
-    return vis.reshape(nchunk * row_chunk, nchan)[:nrow]
+    vr, vi = lax.map(chunk_fn, tuple(a.reshape(nck, chunk) for a in blk))
+    valid = jnp.arange(M) < n
+    vr = jnp.where(valid, vr.reshape(-1), 0)
+    vi = jnp.where(valid, vi.reshape(-1), 0)
+    fr = lax.dynamic_update_slice_in_dim(
+        fr, lax.dynamic_slice_in_dim(fr, lo, M) + vr, lo, 0)
+    fi = lax.dynamic_update_slice_in_dim(
+        fi, lax.dynamic_slice_in_dim(fi, lo, M) + vi, lo, 0)
+    return fr, fi

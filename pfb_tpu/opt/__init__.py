@@ -1,3 +1,3 @@
 """Optimisation algorithms (PCG, power method, primal-dual, FISTA) —
-TPU-native equivalents of pfb/opt/ in the reference, built on
+JAX equivalents of pfb/opt/ in the reference, built on
 lax.while_loop so entire solves stay on-device inside one XLA program."""

@@ -56,15 +56,13 @@ def make_power_method_fused(apply, tol=1e-5, maxit=250, verbosity=0,
     """Jit :func:`power_method` around ``apply(x, consts)`` with the
     operator constants as runtime arguments (see
     opt/pcg.py:make_pcg_bands_fused for why): ``pm(b0, consts)``
-    returns (beta, b). Used for the Pallas PSF Hessian, whose
-    transfer function must not be baked into the program nor closed
-    over by an eager while_loop."""
+    returns (beta, b). Used for the PSF Hessian, whose transfer
+    function must not be baked into the program."""
 
     @jax.jit
     def pm(b0, consts):
-        # align with the operator's output dtype (the Pallas pipeline
-        # is float32 even when the caller's cubes are f64 on CPU) —
-        # the while_loop carry must be dtype-stable
+        # align with the operator's output dtype — the while_loop
+        # carry must be dtype-stable
         out_dt = jax.eval_shape(lambda z: apply(z, consts), b0).dtype
         return power_method(lambda z: apply(z, consts), b0.shape,
                             b0=b0.astype(out_dt), tol=tol,

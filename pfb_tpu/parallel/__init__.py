@@ -8,7 +8,7 @@ prox-ratio broadcast through the scheduler (SURVEY.md sections 2.9,
 band-sharded (and optionally space-sharded) over a jax.sharding.Mesh,
 and every reduction the reference routes through the scheduler — wsum,
 MFS residual, prox band-sums, eps/rnorm scalars — becomes a psum over
-the mesh riding ICI.
+the mesh.
 """
 
 from pfb_tpu.parallel.mesh import band_sharding, make_mesh

@@ -10,7 +10,7 @@ resident; the only communication is
   coordinator scalar reduces,
 - psum of the (nbasis, Nymax, Nxmax) band-sum of dual coefficients for
   the MFS prox ratio — the reference's get_ratio gather/broadcast
-  (primal_dual.py:270-290), here one allreduce riding ICI.
+  (primal_dual.py:270-290), here one allreduce.
 
 Everything else is band-local, preserving the reference's "big cubes
 stay put, reductions travel" design (SURVEY.md section 3.5).
@@ -20,49 +20,24 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax import lax
 from jax.sharding import PartitionSpec as P
 
 from jax import shard_map
 
-from pfb_tpu.ops.fft import psf_convolve_cube
 from pfb_tpu.ops.psf import hessian_psf_cube
 
 
-def _hessian_engine(engine, *, lastsize=None, sigmainv=0.0, nx=None,
-                    ny=None, row_block=128, nh=1, interpret=None):
+def _hessian_engine(*, lastsize=None, sigmainv=0.0):
     """Per-shard PSF-Hessian matvec for the distributed solvers.
 
-    Returns ``(local, hspecs)``: ``local(x, hargs)`` applies the matvec
-    to the shard-local band block with ``hargs`` the transfer-function
-    operand tuple, and ``hspecs`` the matching band-sharded in_specs.
-
-    engine="fft": ``hargs = (psfhat,)``, the XLA rFFT convolve.
-    engine="pallas": ``hargs = (Hsr,)`` or ``(Hsr, Hsi)`` from
-    :func:`pfb_tpu.ops.psf.prep_pallas_hessian` — the fused v3 Pallas
-    pipeline (14x the XLA path at 4096^2 on v5e) running band-local on
-    each shard; the per-shard cube is band-local so the kernels need no
-    communication, exactly the reference's fast-operator-on-each-actor
-    design (pfb/workers/spotless.py:429-667, hessian.py:129-158).
+    Returns ``(local, hspecs)``: ``local(x, hargs)`` applies the XLA
+    rFFT convolve to the shard-local band block with ``hargs =
+    (psfhat,)``, and ``hspecs`` the matching band-sharded in_specs.
+    The per-shard cube is band-local, so the matvec needs no
+    communication — the reference's fast-operator-on-each-actor design
+    (pfb/workers/spotless.py:429-667, hessian.py:129-158).
     """
-    if engine == "pallas":
-        from pfb_tpu.ops.pallas_fft import psf_convolve_pallas_v3_cube
-        if interpret is None:
-            interpret = jax.default_backend() != "tpu"
-
-        def local(x, hargs):
-            hi = hargs[1] if len(hargs) > 1 else None
-            out = psf_convolve_pallas_v3_cube(
-                x.astype(jnp.float32), hargs[0], hi, nx, ny,
-                row_block=row_block, interpret=interpret)
-            out = out.astype(x.dtype)
-            if sigmainv:
-                out = out + x * sigmainv
-            return out
-
-        return local, (P("band", None, None, None),) * nh
-
     def local(x, hargs):
         return hessian_psf_cube(x, hargs[0], lastsize=lastsize,
                                 sigmainv=sigmainv)
@@ -70,21 +45,15 @@ def _hessian_engine(engine, *, lastsize=None, sigmainv=0.0, nx=None,
     return local, (P("band", None, None),)
 
 
-def hessian_psf_dist(mesh, lastsize=None, sigmainv=0.0, engine="fft",
-                     nx=None, ny=None, row_block=128, nh=1,
-                     interpret=None):
+def hessian_psf_dist(mesh, lastsize=None, sigmainv=0.0):
     """Band-sharded PSF-Hessian matvec: purely local per shard.
 
-    The returned function takes ``(x, *hargs)`` with ``hargs`` the
-    engine's transfer-function operands (see :func:`_hessian_engine`),
-    each sharded over 'band'."""
-    local, hspecs = _hessian_engine(engine, lastsize=lastsize,
-                                    sigmainv=sigmainv, nx=nx, ny=ny,
-                                    row_block=row_block, nh=nh,
-                                    interpret=interpret)
+    The returned function takes ``(x, psfhat)`` with PSFHAT sharded
+    over 'band'."""
+    local, hspecs = _hessian_engine(lastsize=lastsize, sigmainv=sigmainv)
     spec = P("band", None, None)
     fn = shard_map(local, mesh=mesh, in_specs=(spec, hspecs),
-                   out_specs=spec, check_vma=engine != "pallas")
+                   out_specs=spec)
     jfn = jax.jit(fn)
 
     def run(x, *hargs):
@@ -93,23 +62,9 @@ def hessian_psf_dist(mesh, lastsize=None, sigmainv=0.0, engine="fft",
     return run
 
 
-def hessian_psf_space_dist(mesh, lastsize=None, sigmainv=0.0,
-                           method="fft", nx=None, ny=None, nh=1,
-                           interpret=None):
+def hessian_psf_space_dist(mesh, lastsize, sigmainv=0.0,
+                           method="fft"):
     """Band- AND space-sharded PSF-Hessian matvec.
-
-    method="pallas": the fused v3 Pallas pipeline distributed across
-    the 'space' axis — K1 (X-direction stage) runs on locally-owned
-    image COLUMNS, an all_to_all re-shards the x-spectrum over its
-    (padded) NXH rows for the local K2 transfer-function multiply,
-    and a second pair of transposes feeds K3 and restores row
-    sharding. Four cube-sized/nspace all_to_alls per matvec buy the
-    ~20x per-chip kernel speedup of the v3 engine over the XLA rFFT2
-    (round-4 VERDICT item 2: the engine previously downgraded to
-    'fft' whenever space_shards > 1). Prepare H with
-    :func:`pfb_tpu.ops.psf.prep_pallas_hessian_space` and pass
-    ``nx``/``ny``/``nh`` (operand count: 1 for a real transfer
-    function, 2 for complex).
 
     method="fft" (default): distributed rFFT2 convolution. The y-axis
     transform runs on the locally-owned image rows, one all_to_all over
@@ -129,22 +84,6 @@ def hessian_psf_space_dist(mesh, lastsize=None, sigmainv=0.0,
     method (zero-padded to a column count divisible by the space axis,
     sharded over its spectral columns).
     """
-    if method == "pallas":
-        spec = P("band", "space", None)
-        hspec = P("band", None, "space", None)
-        if interpret is None:
-            interpret = jax.default_backend() != "tpu"
-
-        def local_pl(x, *hargs):
-            return _space_pallas_conv_local(x, hargs, nx, ny,
-                                            sigmainv=sigmainv,
-                                            interpret=interpret)
-
-        fn = shard_map(local_pl, mesh=mesh,
-                       in_specs=(spec,) + (hspec,) * nh,
-                       out_specs=spec, check_vma=False)
-        return jax.jit(fn)
-
     if method == "allgather":
         spec = P("band", "space", None)
         pspec = P("band", None, None)
@@ -185,7 +124,7 @@ def _space_fft_conv_local(x, psfhat_p, lastsize, sigmainv=0.0,
     ``nsplit`` pipelines the local band block through the collective
     boundaries in chunks (default: 2 when more than one band is
     local): chunk i+1's transforms are independent of chunk i's
-    all_to_all, so XLA's latency-hiding scheduler can run ICI
+    all_to_all, so XLA's latency-hiding scheduler can run the
     transfers under FFT compute instead of the strict
     a2a -> compute -> a2a serialisation (BASELINE.json north star:
     "collectives overlapped with FFT compute"; degenerate single-chunk
@@ -228,71 +167,6 @@ def _space_fft_conv_local(x, psfhat_p, lastsize, sigmainv=0.0,
     return out.real.astype(x.dtype)
 
 
-def _space_pallas_conv_local(xl, hargs, nx, ny, sigmainv=0.0,
-                             interpret=False, nsplit=None):
-    """Shard-local body of the space-distributed v3 Pallas convolve
-    (see :func:`hessian_psf_space_dist` method="pallas"). Runs inside
-    a shard_map over ('band', 'space'); xl: (nbl, nxl, ny) owned image
-    rows; hargs: (Hsr[, Hsi]) owned NXH-row shards from
-    :func:`pfb_tpu.ops.psf.prep_pallas_hessian_space` (row axis padded
-    to nspace*128, so every local K2 grid is whole 128-row blocks).
-
-    Stage/sharding walk: rows -> (a2a) columns -> K1 -> pad NXH ->
-    (a2a) spectrum rows -> K2 -> (a2a) columns -> K3 -> (a2a) rows.
-
-    ``nsplit`` band-chunks the pipeline (default 2 when the local
-    band count allows) so chunk i+1's Pallas stages are independent
-    of chunk i's all_to_alls — XLA's latency-hiding scheduler can
-    overlap the ICI transposes with kernel compute (see
-    :func:`_space_fft_conv_local`).
-    """
-    from pfb_tpu.ops.pallas_fft import (psf_v3_stage_k1,
-                                        psf_v3_stage_k2,
-                                        psf_v3_stage_k3)
-    nbl = xl.shape[0]
-    if nsplit is None:
-        nsplit = 2 if nbl % 2 == 0 and nbl > 1 else 1
-    if nsplit > 1:
-        parts = [
-            _space_pallas_conv_local(
-                xl[i::nsplit], tuple(h[i::nsplit] for h in hargs),
-                nx, ny, sigmainv=sigmainv, interpret=interpret,
-                nsplit=1)
-            for i in range(nsplit)]
-        return jnp.stack(parts, axis=1).reshape(xl.shape)
-    Hsr = hargs[0]
-    Hsi = hargs[1] if len(hargs) > 1 else None
-    NXH_l = Hsr.shape[2]
-    ps = lax.axis_size("space")
-    NXH_pad = NXH_l * ps
-    # rows -> columns (the v3 kernels are float32)
-    xc = lax.all_to_all(xl.astype(jnp.float32), "space", split_axis=2,
-                        concat_axis=1, tiled=True)  # (nbl, nx, ny_l)
-    zr, zi = psf_v3_stage_k1(xc, nx, interpret=interpret)
-    NXH = zr.shape[1]
-    zr = jnp.pad(zr, [(0, 0), (0, NXH_pad - NXH), (0, 0)])
-    zi = jnp.pad(zi, [(0, 0), (0, NXH_pad - NXH), (0, 0)])
-    # columns -> spectrum rows
-    zr = lax.all_to_all(zr, "space", split_axis=1, concat_axis=2,
-                        tiled=True)               # (nbl, NXH_l, ny)
-    zi = lax.all_to_all(zi, "space", split_axis=1, concat_axis=2,
-                        tiled=True)
-    wr, wi = psf_v3_stage_k2(zr, zi, Hsr, Hsi, interpret=interpret)
-    # spectrum rows -> columns
-    wr = lax.all_to_all(wr, "space", split_axis=2, concat_axis=1,
-                        tiled=True)               # (nbl, NXH_pad, ny_l)
-    wi = lax.all_to_all(wi, "space", split_axis=2, concat_axis=1,
-                        tiled=True)
-    out_c = psf_v3_stage_k3(wr[:, :NXH], wi[:, :NXH], nx,
-                            interpret=interpret)  # (nbl, nx, ny_l)
-    # columns -> rows
-    out = lax.all_to_all(out_c, "space", split_axis=1, concat_axis=2,
-                         tiled=True)              # (nbl, nxl, ny)
-    if sigmainv:
-        out = out + xl * sigmainv
-    return out.astype(xl.dtype)
-
-
 def prep_psfhat_space(psfhat, nspace):
     """Lay PSFHAT out for the distributed-FFT convolve: zero-pad the
     spectral column axis to a multiple of the 'space' shard count (the
@@ -305,14 +179,10 @@ def prep_psfhat_space(psfhat, nspace):
 
 
 def power_method_dist(mesh, lastsize=None, tol=1e-5, maxit=200,
-                      sigmainv=0.0, engine="fft", nx=None, ny=None,
-                      row_block=128, nh=1, interpret=None):
+                      sigmainv=0.0):
     """Distributed power method: local matvecs + psum'd norms
     (reference power_method_dist, opt/power_method.py:52-127)."""
-    hess, hspecs = _hessian_engine(engine, lastsize=lastsize,
-                                   sigmainv=sigmainv, nx=nx, ny=ny,
-                                   row_block=row_block, nh=nh,
-                                   interpret=interpret)
+    hess, hspecs = _hessian_engine(lastsize=lastsize, sigmainv=sigmainv)
     spec = P("band", None, None)
 
     def body_fn(b0, hargs):
@@ -343,8 +213,7 @@ def power_method_dist(mesh, lastsize=None, tol=1e-5, maxit=200,
         return beta[None], b
 
     fn = shard_map(body_fn, mesh=mesh, in_specs=(spec, hspecs),
-                   out_specs=(P(None), spec),
-                   check_vma=engine != "pallas")
+                   out_specs=(P(None), spec))
     jfn = jax.jit(fn)
 
     def run(b0, *hargs):
@@ -355,17 +224,13 @@ def power_method_dist(mesh, lastsize=None, tol=1e-5, maxit=200,
 
 
 def pcg_dist(mesh, lastsize=None, sigmainv=0.0, tol=1e-5, maxit=500,
-             minit=10, engine="fft", nx=None, ny=None, row_block=128,
-             nh=1, interpret=None):
+             minit=10):
     """Band-sharded PCG: per-band systems are independent, so each
     shard runs the batched per-band PCG on its local bands with no
     communication (reference pcg_dist, opt/pcg.py:363-420)."""
     from pfb_tpu.opt.pcg import pcg_bands
 
-    hess, hspecs = _hessian_engine(engine, lastsize=lastsize,
-                                   sigmainv=sigmainv, nx=nx, ny=ny,
-                                   row_block=row_block, nh=nh,
-                                   interpret=interpret)
+    hess, hspecs = _hessian_engine(lastsize=lastsize, sigmainv=sigmainv)
     spec = P("band", None, None)
 
     def local(b, x0, hargs):
@@ -377,7 +242,7 @@ def pcg_dist(mesh, lastsize=None, sigmainv=0.0, tol=1e-5, maxit=500,
                          minit=minit)
 
     fn = shard_map(local, mesh=mesh, in_specs=(spec, spec, hspecs),
-                   out_specs=spec, check_vma=engine != "pallas")
+                   out_specs=spec)
     jfn = jax.jit(fn)
 
     def run(b, x0, *hargs):
@@ -402,8 +267,7 @@ def _dual_update_dist(vp, v, lam, sigma, weight):
 
 def primal_dual_dist(mesh, psi, lastsize=None, nu=None, tol=1e-5,
                      maxit=500, positivity=1, gamma=1.0, rmsfactor=1.0,
-                     alpha=4.0, maxreweight=50, engine="fft", nx=None,
-                     ny=None, row_block=128, nh=1, interpret=None):
+                     alpha=4.0, maxreweight=50):
     """Band-sharded primal-dual backward step with the single-device
     solver's reweight-on-converge restart (opt/primal_dual.py:86-93):
     when the relative change drops below tol and reweighting is enabled,
@@ -414,17 +278,15 @@ def primal_dual_dist(mesh, psi, lastsize=None, nu=None, tol=1e-5,
         f(x, v, data, hargs, l1weight, lam, L, rms_comps, do_reweight)
             -> (x, v, l1weight, niters)
     with x, data (nband, nx, ny) and v (nband, nbasis, Nymax, Nxmax)
-    sharded over 'band'; ``hargs`` the engine's transfer-function
-    operand tuple (a bare psfhat array is accepted for engine='fft');
+    sharded over 'band'; ``hargs`` the (psfhat,) operand tuple (a bare
+    psfhat array is accepted);
     l1weight and rms_comps (nbasis, Nymax, Nxmax) replicated; lam, L
     scalars; do_reweight a traced bool so one compiled program serves
     both phases of the major cycle.
     """
     from pfb_tpu.ops.psi import psi_dot, psi_hdot
 
-    hess, hspecs = _hessian_engine(engine, lastsize=lastsize, nx=nx,
-                                   ny=ny, row_block=row_block, nh=nh,
-                                   interpret=interpret)
+    hess, hspecs = _hessian_engine(lastsize=lastsize)
     if nu is None:
         nu = psi.nbasis
     cube = P("band", None, None)
@@ -481,8 +343,7 @@ def primal_dual_dist(mesh, psi, lastsize=None, nu=None, tol=1e-5,
     fn = shard_map(local, mesh=mesh,
                    in_specs=(cube, coeff, cube, hspecs, wspec, P(),
                              P(), wspec, P()),
-                   out_specs=(cube, coeff, wspec, P(None)),
-                   check_vma=engine != "pallas")
+                   out_specs=(cube, coeff, wspec, P(None)))
     jfn = jax.jit(fn)
 
     def run(x, v, data, hargs, l1weight, lam, L, rms_comps=None,
@@ -515,10 +376,10 @@ def _apply_positivity_dist(x, positivity):
 
 def _psi_dot_space_local(xl, psi, qy):
     """Space-sharded SARA analysis, shard-local body: gather the full
-    band-local image rows over 'space', run the (compact, VPU-cheap)
+    band-local image rows over 'space', run the (compact, cheap)
     wavelet transform, and keep only THIS shard's slice of packed
     coefficient rows. The dual cube — nbasis x the image, the object
-    that actually exceeds HBM at scale — stays sharded; only the image
+    that outgrows device memory first — stays sharded; only the image
     (the small operand) travels. xl: (nbl, nxl, ny) ->
     (nbl, nbasis, qy, Nxmax) with qy = ceil(Nymax / nspace)."""
     from pfb_tpu.ops.psi import psi_dot
@@ -551,11 +412,10 @@ def _psi_hdot_space_local(al, psi, qy):
                             tiled=True)
 
 
-def primal_dual_space_dist(mesh, psi, lastsize=None, nu=None, tol=1e-5,
+def primal_dual_space_dist(mesh, psi, lastsize, nu=None, tol=1e-5,
                            maxit=500, positivity=1, gamma=1.0,
                            rmsfactor=1.0, alpha=4.0, maxreweight=50,
-                           psi_method="auto", engine="fft", nx=None,
-                           ny=None, nh=1, interpret=None):
+                           psi_method="auto"):
     """Band- AND space-sharded primal-dual backward step: the image
     cube is sharded P('band','space',None), the dual/coefficient cube
     P('band',None,'space',None) over its packed rows, so per-device
@@ -576,18 +436,13 @@ def primal_dual_space_dist(mesh, psi, lastsize=None, nu=None, tol=1e-5,
       (nx divisible by nspace*2^nlevel, per-shard chunks >= F-2),
       else gather.
 
-    engine="fft" (default) runs the distributed-rFFT2 convolve (call
-    :func:`prep_psfhat_space` on PSFHAT first); engine="pallas" runs
-    the space-distributed v3 Pallas pipeline
-    (:func:`_space_pallas_conv_local`; prepare H with
-    ``prep_pallas_hessian_space`` and pass ``nx``/``ny``/``nh``) — the
-    round-4 build silently downgraded space-sharded runs to the XLA
-    FFT engine. Returns a function
-        f(x, v, data, hargs, l1weight, lam, L, rms_comps,
+    The gradient runs the distributed-rFFT2 convolve (call
+    :func:`prep_psfhat_space` on PSFHAT first; ``lastsize`` is the
+    PSF's last axis). Returns a function
+        f(x, v, data, psfhat_p, l1weight, lam, L, rms_comps,
           do_reweight) -> (x, v, l1weight, niters)
-    where ``hargs`` is PSFHAT_p (fft) or the (Hsr[, Hsi]) tuple
-    (pallas), accepting UNPADDED v/l1weight/rms_comps (padding of the
-    packed row axis to the space multiple is handled here).
+    accepting UNPADDED v/l1weight/rms_comps (padding of the packed
+    row axis to the space multiple is handled here).
     """
     if nu is None:
         nu = psi.nbasis
@@ -628,27 +483,15 @@ def primal_dual_space_dist(mesh, psi, lastsize=None, nu=None, tol=1e-5,
     cube = P("band", "space", None)
     coeff = P("band", None, "space", None)
     wspec = P(None, "space", None)
-    if engine == "pallas":
-        hspecs = (P("band", None, "space", None),) * nh
-        if interpret is None:
-            interpret = jax.default_backend() != "tpu"
-    else:
-        hspecs = (P("band", None, "space"),)
+    hspec = P("band", None, "space")
 
-    def local(x, v, data, *rest):
-        hargs = rest[:len(hspecs)]
-        l1weight, lam, L, rms_comps, do_reweight = rest[len(hspecs):]
+    def local(x, v, data, psfhat_p, l1weight, lam, L, rms_comps,
+              do_reweight):
         sigma = L / (2.0 * gamma) / nu
         tau = 0.9 / (L / (2.0 * gamma) + sigma * nu**2)
 
-        if engine == "pallas":
-            def grad(xl):
-                return _space_pallas_conv_local(
-                    xl, hargs, nx, ny, interpret=interpret) - data
-        else:
-            def grad(xl):
-                return _space_fft_conv_local(xl, hargs[0],
-                                             lastsize) - data
+        def grad(xl):
+            return _space_fft_conv_local(xl, psfhat_p, lastsize) - data
 
         def gnorm_sq(a):
             return lax.psum(jnp.sum(a * a), ("band", "space"))
@@ -691,10 +534,9 @@ def primal_dual_space_dist(mesh, psi, lastsize=None, nu=None, tol=1e-5,
         return xf, vf, wf, k[None]
 
     fn = shard_map(local, mesh=mesh,
-                   in_specs=(cube, coeff, cube) + hspecs
-                   + (wspec, P(), P(), wspec, P()),
-                   out_specs=(cube, coeff, wspec, P(None)),
-                   check_vma=engine != "pallas")
+                   in_specs=(cube, coeff, cube, hspec, wspec, P(), P(),
+                             wspec, P()),
+                   out_specs=(cube, coeff, wspec, P(None)))
     jfn = jax.jit(fn)
 
     def padq(a, value=0.0):
@@ -706,11 +548,9 @@ def primal_dual_space_dist(mesh, psi, lastsize=None, nu=None, tol=1e-5,
             do_reweight=False):
         if rms_comps is None:
             rms_comps = jnp.ones_like(l1weight)
-        hargs = psfhat_p if isinstance(psfhat_p, tuple) \
-            else (psfhat_p,)
         # rms_comps pads with ones: 0**alpha/0**alpha in the reweight
         # formula would be nan (harmless but unsightly) on padded rows
-        xf, vf, wf, k = jfn(x, padq(v), data, *hargs, padq(l1weight),
+        xf, vf, wf, k = jfn(x, padq(v), data, psfhat_p, padq(l1weight),
                             lam, L, padq(rms_comps, 1.0),
                             jnp.asarray(do_reweight))
         return (xf, vf[:, :, :psi.Nymax], wf[:, :psi.Nymax], k[0])
@@ -739,148 +579,30 @@ def coeff_rms_dist(mesh, psi, pix_per_beam):
     return jax.jit(fn)
 
 
-def make_vis2dirty_rowdist(mesh, uvw, freq, *, nx, ny, cellx, celly,
-                           epsilon=1e-7, do_wgridding=True, x0=0.0,
-                           y0=0.0, axis="space", capacity=128):
-    """Row-sharded R.H through the Pallas gridder (SURVEY.md
-    section 2.9 "row parallelism": shard rows across hosts for
-    gridding; partial-grid accumulation + psum of subgrids).
-
-    Visibility rows are split into equal blocks across the ``axis``
-    mesh axis; each shard spreads + tile-folds ITS rows into the
-    (2nw, Nx, Ny) extended uv grids with the fused Pallas kernel, one
-    ``lax.psum`` over the axis accumulates the subgrids (the only
-    communication — O(w-planes x padded grid) per adjoint,
-    independent of the visibility count), and the w-plane iFFTs +
-    grid corrections run replicated on the summed grid.
-
-    Returns ``(fn, split)``: ``split(arr)`` maps a host (nrow, nchan)
-    array onto the sharded (nshard, rows_per, nchan) layout
-    (zero-padding the ragged tail) and ``fn(vr, vi, wgt)`` produces
-    the replicated (nx, ny) dirty image. All per-shard plans share the
-    global w geometry and a common compiled shape.
-    """
-    from pfb_tpu.ops.pgridder import (_grid_to_image_from_plan,
-                                      _spread_fold_from_plan,
-                                      pgrid_plan, w_geometry)
-    from pfb_tpu.ops.wgridder import kernel_params
-
-    uvw = np.asarray(uvw)
-    freq = np.asarray(freq)
-    nsh = mesh.shape[axis]
-    nrow = uvw.shape[0]
-    rows_per = -(-nrow // nsh)
-
-    # global w geometry: every shard must agree on the plane grid
-    k, _beta = kernel_params(epsilon)
-    wp = w_geometry(uvw, freq, nx, ny, cellx, celly, x0, y0, 2.0, k,
-                    do_wgridding)
-
-    def block(s):
-        u = uvw[s * rows_per:(s + 1) * rows_per]
-        if u.shape[0] < rows_per:
-            u = np.pad(u, ((0, rows_per - u.shape[0]), (0, 0)))
-        return u
-
-    # uniform tile geometry across row shards (the auto selection
-    # must see the same data on every shard)
-    from pfb_tpu.ops.pgridder import _auto_tiles
-    from pfb_tpu.ops.wgridder import _grid_setup
-    if uvw.shape[0] * freq.shape[0] >= (1 << 18):
-        Nx_, Ny_ = _grid_setup(nx, ny, cellx, celly, 2.0)
-        tu, tv = _auto_tiles(np.asarray(uvw), np.asarray(freq), Nx_,
-                             Ny_, cellx, celly, k, capacity)
-    else:
-        tu = tv = None
-    plans = [pgrid_plan(block(s), freq, nx=nx, ny=ny, cellx=cellx,
-                        celly=celly, epsilon=epsilon,
-                        do_wgridding=do_wgridding, capacity=capacity,
-                        x0=x0, y0=y0, w_params=wp, tile_u=tu,
-                        tile_v=tv)
-             for s in range(nsh)]
-    nent = max(p["nentries"] for p in plans)
-    plans = [p if p["nentries"] == nent else
-             pgrid_plan(block(s), freq, nx=nx, ny=ny, cellx=cellx,
-                        celly=celly, epsilon=epsilon,
-                        do_wgridding=do_wgridding, capacity=capacity,
-                        x0=x0, y0=y0, w_params=wp, tile_u=tu,
-                        tile_v=tv, nentries_to=nent)
-             for s, p in enumerate(plans)]
-    p0 = plans[0]
-
-    sh = jax.NamedSharding(mesh, P(axis))
-    stacked = {key: jax.device_put(
-        jnp.stack([p[key] for p in plans]), sh)
-        for key in ("tid", "pos", "idx", "pm", "uvw_d")}
-    interpret = jax.default_backend() != "tpu"
-
-    def split(arr):
-        arr = np.asarray(arr)
-        pad = nsh * rows_per - nrow
-        arr = np.pad(arr, ((0, pad),) + ((0, 0),) * (arr.ndim - 1))
-        return jnp.asarray(
-            arr.reshape(nsh, rows_per, *arr.shape[1:])
-            .astype(p0["rdtype"]))
-
-    rspec = P(axis)
-
-    def local(vr, vi, w, tid, pos, idx, pm, uvw_d):
-        folded = _spread_fold_from_plan(
-            p0, vr[0], vi[0], w[0] if w is not None else None,
-            tid[0], pos[0], idx[0], pm[0], uvw_d[0],
-            interpret=interpret)
-        folded = lax.psum(folded, axis)
-        return _grid_to_image_from_plan(p0, folded)
-
-    # check_vma=False: pallas_call out_shapes carry no varying-mesh-axis
-    # annotation, so the rep checker cannot see through the kernel
-    fn = shard_map(local, mesh=mesh,
-                   in_specs=(rspec, rspec, rspec, rspec, rspec, rspec,
-                             rspec, rspec),
-                   out_specs=P(), check_vma=False)
-    jfn = jax.jit(fn)
-
-    def run(vr, vi, wgt=None):
-        w = split(wgt) if wgt is not None else jnp.ones(
-            (nsh, rows_per, freq.shape[0]), p0["pos"].dtype)
-        return jfn(split(vr), split(vi), w, stacked["tid"],
-                   stacked["pos"], stacked["idx"], stacked["pm"],
-                   stacked["uvw_d"])
-
-    return run, split
-
-
 def make_hessian_dds_dist(mesh, dds, nband, wsum, nx, ny,
                           sigmainv=0.0, use_beam=True,
                           mask_image=None, backend="dft",
-                          epsilon=1e-7, do_wgridding=True,
-                          plane_block=None):
+                          epsilon=1e-7, do_wgridding=True):
     """Band-sharded exact vis-space Hessian over datasets: the
     distributed twin of ops.gridder.make_hessian_dds (reference
     hessian.py:11-59 reduced per band on its own worker,
-    spotless.py:429-667 design intent).
+    spotless.py:429-667 design intent). The matvec takes and returns a
+    (nband, nx, ny) cube sharded P('band', None, None) and runs R.H W R
+    per band with NO communication — big cubes stay put.
 
-    Host-side prep stacks every band's datasets into
-    (nband, ndata, ...) arrays (row/data padding carries zero
-    weight+mask, see ops.gridder.stack_dds); the returned jitted matvec
-    shard_maps over 'band' and runs R.H W R per local band with NO
-    communication — big cubes stay put.
-
-    backend="pg" evaluates through the fused Pallas ES gridder with
-    stacked shard-local plans (ops.pgridder.stack_pg_plans): each shard
-    scans its bands' datasets through one fused forward+adjoint — the
-    FAST exact residual on the mesh (the reference's per-band actors
-    run the ducc0 wgridder, hessian.py:230-251); "dft" keeps the exact
-    direct transform (the oracle — O(Npix·Nvis), test scale only).
-    ``plane_block`` (pg, w-gridding on): w-plane-BLOCKED plan sets —
-    grid memory O(plane_block x padded grid), required at 4096^2+
-    where the all-planes layout exceeds HBM.
+    'wgrid': every dataset's gridder is planned once with its
+    arrays committed to the device that owns the dataset's band; the
+    matvec applies each band's planned operators on that device's
+    shard of the cube (dispatch is asynchronous, so the devices run
+    concurrently) and reassembles the sharded result. 'dft': the exact
+    direct transform over stacked datasets under shard_map (the oracle
+    — O(Npix·Nvis), test scale only).
     """
-    if backend == "pg":
-        return _make_hessian_dds_dist_pg(
+    if backend != "dft":
+        return _make_hessian_dds_dist_planned(
             mesh, dds, nband, wsum, nx, ny, sigmainv=sigmainv,
-            use_beam=use_beam, mask_image=mask_image, epsilon=epsilon,
-            do_wgridding=do_wgridding, plane_block=plane_block)
+            use_beam=use_beam, mask_image=mask_image, backend=backend,
+            epsilon=epsilon, do_wgridding=do_wgridding)
     from pfb_tpu.ops.gridder import (_hessian_stacked_local, stack_dds)
 
     st = stack_dds(dds, nband, use_beam=use_beam,
@@ -922,77 +644,60 @@ def make_hessian_dds_dist(mesh, dds, nband, wsum, nx, ny,
     return matvec
 
 
-def _make_hessian_dds_dist_pg(mesh, dds, nband, wsum, nx, ny,
-                              sigmainv=0.0, use_beam=True,
-                              mask_image=None, epsilon=1e-7,
-                              do_wgridding=True, plane_block=None):
-    """pg backend of :func:`make_hessian_dds_dist`: shard-local fused
-    Pallas gridder chains over stacked plans (w-plane-blocked when
-    ``plane_block`` is set and w-gridding is on)."""
-    interpret = jax.default_backend() != "tpu"
+def band_devices(mesh, nband):
+    """The device holding each band of a P('band', None, None) cube
+    (one device per band: the first along the mesh's other axes)."""
+    sharding = jax.NamedSharding(mesh, P("band", None, None))
+    idx = sharding.devices_indices_map((nband, 1, 1))
+    out = [None] * nband
+    for dev, ix in idx.items():
+        for b in range(nband)[ix[0]]:
+            if out[b] is None or dev.id < out[b].id:
+                out[b] = dev
+    return out
+
+
+def _make_hessian_dds_dist_planned(mesh, dds, nband, wsum, nx, ny,
+                                   sigmainv=0.0, use_beam=True,
+                                   mask_image=None, backend="wgrid",
+                                   epsilon=1e-7, do_wgridding=True):
+    """Planned-gridder backend of :func:`make_hessian_dds_dist` (see
+    there)."""
+    from pfb_tpu.ops.gridder import hessian_planned, plan_hessian_datasets
+
+    devs = band_devices(mesh, nband)
+    ops = plan_hessian_datasets(dds, nx, ny, backend, epsilon,
+                                do_wgridding, use_beam, mask_image,
+                                devices=devs)
+    sharding = jax.NamedSharding(mesh, P("band", None, None))
     wsum = float(wsum)
-    cube = P("band", None, None)
-
-    if plane_block and do_wgridding:
-        from pfb_tpu.ops.pg_stream import (
-            _WBLK_STACK_KEYS, _hessian_pg_cube_local_wblocked,
-            stack_pg_plans_wblocked)
-
-        st = stack_pg_plans_wblocked(
-            dds, nband, nx=nx, ny=ny, epsilon=epsilon,
-            plane_block=int(plane_block), use_beam=use_beam,
-            mask_image=mask_image)
-        rdt = st["p0"]["rdtype"]
-        has_beam = st["beam"] is not None
-        meta = st["meta"]
-
-        def local(x, *args):
-            arrs = args[:len(_WBLK_STACK_KEYS)]
-            beam = args[len(_WBLK_STACK_KEYS)] if has_beam else None
-            conv = _hessian_pg_cube_local_wblocked(x, arrs, beam,
-                                                   meta, interpret)
-            out = conv / wsum
-            if sigmainv:
-                out = out + x * sigmainv**2
-            return out
-
-        args = [st["arrs"][k] for k in _WBLK_STACK_KEYS]
-        if has_beam:
-            args.append(st["beam"])
-    else:
-        from pfb_tpu.ops.pgridder import (_hessian_pg_cube_local,
-                                          stack_pg_plans)
-
-        st = stack_pg_plans(dds, nband, nx=nx, ny=ny, epsilon=epsilon,
-                            do_wgridding=do_wgridding,
-                            use_beam=use_beam, mask_image=mask_image)
-        p0 = st["p0"]
-        rdt = p0["rdtype"]
-        has_beam = st["beam"] is not None
-
-        def local(x, pos, tid, idx, pm, wgt, uvw, frq, *maybe_beam):
-            beam = maybe_beam[0] if has_beam else None
-            conv = _hessian_pg_cube_local(
-                x, (pos, tid, idx, pm, wgt, uvw, frq), beam, p0,
-                interpret)
-            out = conv / wsum
-            if sigmainv:
-                out = out + x * sigmainv**2
-            return out
-
-        keys = ("pos", "tid", "idx", "pm", "wgt", "uvw", "freq")
-        args = [st[k] for k in keys]
-        if has_beam:
-            args.append(st["beam"])
-
-    specs = tuple(P("band", *([None] * (a.ndim - 1))) for a in args)
-    fn = shard_map(local, mesh=mesh, in_specs=(cube,) + specs,
-                   out_specs=cube, check_vma=False)
-    jfn = jax.jit(fn)
-    shards = [jax.device_put(a, jax.NamedSharding(mesh, s))
-              for a, s in zip(args, specs)]
 
     def matvec(x):
-        return jfn(x.astype(rdt), *shards).astype(x.dtype)
+        if not x.sharding.is_equivalent_to(sharding, x.ndim):
+            x = jax.device_put(x, sharding)  # e.g. a space-sharded cube
+        shard_of = {sh.device: sh for sh in x.addressable_shards}
+        conv = {}
+        for b, g, wgt, msk, beam in ops:
+            sh = shard_of[devs[b]]
+            b0 = sh.index[0].start or 0
+            c = hessian_planned(sh.data[b - b0], g, wgt, msk, beam)
+            conv[b] = c if b not in conv else conv[b] + c
+        blocks = {}
+        pieces = []
+        for sh in x.addressable_shards:
+            b0 = sh.index[0].start or 0
+            if b0 not in blocks:
+                home = shard_of[devs[b0]].data
+                blk = jnp.stack([conv[b] if b in conv
+                                 else jnp.zeros_like(home[0])
+                                 for b in range(b0, b0 + home.shape[0])])
+                out = blk / wsum
+                if sigmainv:
+                    out = out + home * sigmainv**2
+                blocks[b0] = out
+            # space-axis replicas of a band block get a device copy
+            pieces.append(jax.device_put(blocks[b0], sh.device))
+        return jax.make_array_from_single_device_arrays(
+            x.shape, sharding, pieces)
 
     return matvec

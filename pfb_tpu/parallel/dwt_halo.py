@@ -171,7 +171,7 @@ def _halo_down_conv(main, f):
     lead = xt.shape[:-1]
     out = lax.conv_general_dilated(
         xt.reshape(-1, 1, xt.shape[-1]), k, window_strides=(2,),
-        padding="VALID")
+        padding="VALID", precision=lax.Precision.HIGHEST)
     out = out.reshape(*lead, -1)
     return jnp.swapaxes(out, 1, 2)  # (nbl, c/2, m)
 
@@ -212,7 +212,7 @@ def _tail_conv(main_lo, tail_lo, f, n_out, c):
     lead = xt.shape[:-1]
     out = lax.conv_general_dilated(
         xt.reshape(-1, 1, xt.shape[-1]), k, window_strides=(2,),
-        padding="VALID")
+        padding="VALID", precision=lax.Precision.HIGHEST)
     out = out.reshape(*lead, -1)[..., :n_out]
     return jnp.swapaxes(out, 1, 2)
 

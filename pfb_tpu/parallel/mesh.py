@@ -12,7 +12,7 @@ def make_mesh(nband=None, nspace=1, devices=None):
     The band axis carries the embarrassingly parallel frequency
     decomposition (the reference's one-dataset-per-band actors,
     workers/spotless.py:516-524); the space axis shards the image plane
-    for grids that exceed one chip's HBM (SURVEY.md section 5
+    for grids that exceed one device's memory (SURVEY.md section 5
     "long-context analogue").
     """
     if devices is None:

@@ -1,4 +1,4 @@
-"""Jones-corrected Stokes visibilities and weights via sympy codegen.
+"""Jones-corrected Stokes visibilities and weights.
 
 The reference derives, per Stokes product and polarisation basis, the
 weighted data and weight expressions
@@ -6,33 +6,58 @@ weighted data and weight expressions
     W = T.H M.H Sinv M T          (Stokes-space inverse covariance)
     C = W^{-1} T.H M.H Sinv V     (corrected Stokes coherency)
 
-symbolically and numba-compiles them per (row, chan)
-(pfb/utils/stokes.py:13-232). Here the same sympy derivation is kept —
-it IS the spec — but lambdified to jax.numpy and vmapped over (row,
-chan), so the whole Jones application is one fused XLA program instead
-of a scalar kernel.
+with M = Gp (x) conj(Gq), symbolically with sympy and numba-compiles
+them per (row, chan) (pfb/utils/stokes.py:13-232). Here the same
+algebra is evaluated numerically in jax.numpy over every (row, chan)
+at once: W^{-1} = T^{-1} M^{-1} S M^{-H} T^{-H} with M^{-1} =
+Gp^{-1} (x) conj(Gq)^{-1} from closed-form 2x2 inverses, so
+
+    C = T^{-1} M^{-1} V,   W_ii = sum_k w_k |(M T)_ki|^2
+
+(the weights cancel from C exactly, as they do in the reference's
+simplified expressions).
 
 Jones layout follows QuartiCal like the reference: diag mode jones has
 shape (ntime, nant, nchan, ndir, 2); full mode (..., 2, 2) flattened to
 4 correlations (gain_axes, utils/stokes2vis.py upstream).
 """
 
-from functools import lru_cache, partial
+from functools import partial
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import sympy as sm
-from sympy.physics.quantum import TensorProduct
-from sympy.utilities.lambdify import lambdify
-
-_JAXMOD = [{"conjugate": jnp.conj, "Abs": jnp.abs, "im": jnp.imag,
-            "re": jnp.real, "sqrt": jnp.sqrt}, "numpy"]
+from jax import lax
 
 _PRODUCTS = {"I": 0, "Q": 1, "U": 2, "V": 3}
 
+# coherency <- Stokes: V = T S for the correlation order
+# (00, 01, 10, 11)
+_T = {"linear": np.array([[1.0, 1.0, 0, 0],
+                          [0, 0, 1.0, 1.0j],
+                          [0, 0, 1.0, -1.0j],
+                          [1.0, -1.0, 0, 0]]),
+      "circular": np.array([[1.0, 0, 0, 1.0],
+                            [0, 1.0, 1.0j, 0],
+                            [0, 1.0, -1.0j, 0],
+                            [1.0, 0, 0, -1.0]])}
 
-@lru_cache(maxsize=None)
+
+def _inv2(g):
+    """Closed-form inverse of a (..., 2, 2) stack."""
+    a, b = g[..., 0, 0], g[..., 0, 1]
+    c, d = g[..., 1, 0], g[..., 1, 1]
+    det = a * d - b * c
+    return jnp.stack([jnp.stack([d, -b], -1),
+                      jnp.stack([-c, a], -1)], -2) / det[..., None, None]
+
+
+def _kron2(a, b):
+    """Batched Kronecker product of (..., 2, 2) stacks -> (..., 4, 4)."""
+    k = a[..., :, None, :, None] * b[..., None, :, None, :]
+    return k.reshape(k.shape[:-4] + (4, 4))
+
+
 def stokes_funcs(product="I", pol="linear", mode="diag"):
     """Return (vis_fn, wgt_fn) operating elementwise on arrays.
 
@@ -40,62 +65,46 @@ def stokes_funcs(product="I", pol="linear", mode="diag"):
         wgt_fn(gp0, gp1, gq0, gq1, w0, w1, w2, w3) -> real weight
         vis_fn(gp0, gp1, gq0, gq1, w0, w1, w2, w3,
                v00, v01, v10, v11) -> complex corrected Stokes vis
-    full mode: gp/gq take all four complex entries.
+    full mode: gp/gq take all four complex entries (00, 01, 10, 11).
 
-    Derivation identical to the reference (pfb/utils/stokes.py:13-70).
+    Same algebra as the reference (pfb/utils/stokes.py:13-70).
     """
-    gp00, gp10, gp01, gp11 = sm.symbols("gp00 gp10 gp01 gp11", real=False)
-    gq00, gq10, gq01, gq11 = sm.symbols("gq00 gq10 gq01 gq11", real=False)
-    w0, w1, w2, w3 = sm.symbols("W0 W1 W2 W3", real=True)
-    v00, v10, v01, v11 = sm.symbols("v00 v10 v01 v11", real=False)
-
-    Gp = sm.Matrix([[gp00, gp01], [gp10, gp11]])
-    Gq = sm.Matrix([[gq00, gq01], [gq10, gq11]])
-    Mpq = TensorProduct(Gp, Gq.conjugate())
-    Mpqinv = TensorProduct(Gp.inv(), Gq.conjugate().inv())
-
-    Sinv = sm.diag(w0, w1, w2, w3)
-    S = Sinv.inv()
-    Vpq = sm.Matrix([[v00], [v01], [v10], [v11]])
-
-    if pol == "linear":
-        T = sm.Matrix([[1.0, 1.0, 0, 0],
-                       [0, 0, 1.0, 1.0j],
-                       [0, 0, 1.0, -1.0j],
-                       [1.0, -1.0, 0, 0]])
-    elif pol == "circular":
-        T = sm.Matrix([[1.0, 0, 0, 1.0],
-                       [0, 1.0, 1.0j, 0],
-                       [0, 1.0, -1.0j, 0],
-                       [1.0, 0, 0, -1.0]])
-    else:
+    if pol not in _T:
         raise ValueError(f"Unknown pol basis {pol}")
-    Tinv = T.inv()
-
-    W = T.H * Mpq.H * Sinv * Mpq * T
-    Winv = Tinv * Mpqinv * S * Mpqinv.H * Tinv.H
-    C = Winv * (T.H * (Mpq.H * (Sinv * Vpq)))
-
-    i = _PRODUCTS[product]
-
-    if mode == "diag":
-        subs = [(gp10, 0), (gp01, 0), (gq10, 0), (gq01, 0)]
-        Wii = sm.simplify(sm.expand(W[i, i].subs(subs)))
-        Ci = sm.simplify(sm.expand(C[i].subs(subs)))
-        wargs = (gp00, gp11, gq00, gq11, w0, w1, w2, w3)
-        vargs = wargs + (v00, v01, v10, v11)
-    elif mode == "full":
-        Wii = sm.simplify(sm.expand(W[i, i]))
-        Ci = sm.simplify(sm.expand(C[i]))
-        wargs = (gp00, gp01, gp10, gp11, gq00, gq01, gq10, gq11,
-                 w0, w1, w2, w3)
-        vargs = wargs + (v00, v01, v10, v11)
-    else:
+    if mode not in ("diag", "full"):
         raise ValueError(f"Unknown jones mode {mode}")
+    i = _PRODUCTS[product]
+    T = _T[pol]
+    Ti = np.linalg.inv(T)
+    ng = 2 if mode == "diag" else 4
+    hi = lax.Precision.HIGHEST
 
-    wfn = lambdify(wargs, Wii, modules=_JAXMOD)
-    vfn = lambdify(vargs, Ci, modules=_JAXMOD)
-    return vfn, wfn
+    def gains(g):
+        if mode == "diag":
+            z = jnp.zeros_like(g[0])
+            return jnp.stack([jnp.stack([g[0], z], -1),
+                              jnp.stack([z, g[1]], -1)], -2)
+        return jnp.stack([jnp.stack([g[0], g[1]], -1),
+                          jnp.stack([g[2], g[3]], -1)], -2)
+
+    def wgt_fn(*args):
+        gp, gq = gains(args[:ng]), gains(args[ng:2 * ng])
+        w = jnp.stack(args[2 * ng:2 * ng + 4], -1)
+        A = jnp.einsum("...kl,l->...k", _kron2(gp, jnp.conj(gq)),
+                       jnp.asarray(T[:, i], jnp.result_type(gp)),
+                       precision=hi)
+        return jnp.sum(w * jnp.abs(A) ** 2, axis=-1)
+
+    def vis_fn(*args):
+        gp, gq = gains(args[:ng]), gains(args[ng:2 * ng])
+        v = jnp.stack(args[2 * ng + 4:2 * ng + 8], -1)
+        Minv = _kron2(_inv2(gp), _inv2(jnp.conj(gq)))
+        u = jnp.einsum("...kl,...l->...k", Minv, v, precision=hi)
+        return jnp.einsum("l,...l->...",
+                          jnp.asarray(Ti[i], jnp.result_type(u)), u,
+                          precision=hi)
+
+    return vis_fn, wgt_fn
 
 
 @partial(jax.jit, static_argnames=("product", "pol", "mode"))
@@ -110,7 +119,7 @@ def weight_data(data, weight, flag, jones, tbin_map, ant1, ant2,
     tbin_map: (nrow,) time-bin index per row
     ant1/ant2: (nrow,)
 
-    Returns (vis, wgt) each (nrow, nchan) — the TPU equivalent of
+    Returns (vis, wgt) each (nrow, nchan) — the JAX equivalent of
     _weight_data (pfb/utils/weighting.py:298-350).
     """
     ncorr = data.shape[-1]

@@ -8,9 +8,8 @@ to model visibilities, optionally accumulating into an existing column.
 
 import numpy as np
 
-from pfb_tpu.config import to_host
 from pfb_tpu.models.comps import eval_coeffs_to_slice
-from pfb_tpu.ops.gridder import get_backend
+from pfb_tpu.ops.gridder import DEFAULT_BACKEND, get_backend
 from pfb_tpu.utils import dstore
 from pfb_tpu.utils.ms import read_ms, update_ms_column
 
@@ -18,7 +17,7 @@ from pfb_tpu.utils.ms import read_ms, update_ms_column
 def _degrid(ms=None, mds=None, output_filename=None, product="I",
             suffix="main", model_column="MODEL_DATA",
             channels_per_image=None, integrations_per_image=-1,
-            accumulate=False, backend="dft", epsilon=1e-7,
+            accumulate=False, backend=DEFAULT_BACKEND, epsilon=1e-7,
             do_wgridding=True, nx=None, ny=None,
             cell_rad=None, x0=0.0, y0=0.0, write=True, **kw):
     """Returns the model visibility column (nrow, nchan, ncorr) and

@@ -17,7 +17,6 @@ fastim.yaml channels-per-degrid-image vs channels-per-grid-image).
 
 import numpy as np
 
-from pfb_tpu.config import to_device, to_host
 from pfb_tpu.models.comps import eval_coeffs_to_slice
 from pfb_tpu.ops.gridder import get_backend
 from pfb_tpu.ops.weighting import (compute_counts, counts_to_weights,
@@ -163,10 +162,10 @@ def _fastim(ms=None, output_filename=None, product="I", suffix="fds",
         tout = float(np.mean(utime[t0:t1]))
         csel = slice(c0, min(c0 + cpi, nchan))
         vis, wout = weight_data(
-            to_device(data[rows][:, csel]),
+            jnp.asarray(data[rows][:, csel]),
             jnp.asarray(wgt_in[rows][:, csel]),
             jnp.asarray(flag_rc[rows][:, csel].astype(np.uint8)),
-            to_device(jones[:, :, csel]),
+            jnp.asarray(jones[:, :, csel]),
             jnp.asarray(tbin_map[rows]), jnp.asarray(ant1[rows]),
             jnp.asarray(ant2[rows]), product=product, pol=pol)
         mask = (~flag_rc[rows][:, csel]).astype(np.uint8)

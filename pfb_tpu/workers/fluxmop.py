@@ -9,8 +9,7 @@ revert on failure).
 
 import numpy as np
 
-from pfb_tpu.config import to_device
-from pfb_tpu.ops.gridder import make_hessian_dds
+from pfb_tpu.ops.gridder import DEFAULT_BACKEND, make_hessian_dds
 from pfb_tpu.ops.psf import hessian_psf_cube
 from pfb_tpu.opt.pcg import pcg, pcg_bands
 from pfb_tpu.utils import dstore
@@ -26,7 +25,7 @@ def _fluxmop(ddsi=None, output_filename=None, product="I",
              zero_model_outside_mask=False, use_psf=True, sigmainv=1e-5,
              gamma=0.9, cg_tol=1e-5, cg_maxit=150, cg_minit=10,
              cg_verbose=0, cg_report_freq=10,
-             backtrack=True, model_name="MODEL", backend="dft",
+             backtrack=True, model_name="MODEL", backend=DEFAULT_BACKEND,
              epsilon=1e-7, do_wgridding=True, write=True,
              band_chunk=None, verbose=1, fits_mfs=False,
              fits_cubes=False, space_shards=0, **kw):
@@ -161,7 +160,7 @@ def _psf_hessian_maybe_space(b, bm, psfhat, lastsize, sigmainv,
                              devices=jax.devices()[:nb_ax * ns])
             hd = hessian_psf_space_dist(mesh, lastsize, sigmainv=0.0)
             php = jax.device_put(
-                prep_psfhat_space(to_device(psfhat), ns),
+                prep_psfhat_space(jnp.asarray(psfhat), ns),
                 NamedSharding(mesh, P("band", None, "space")))
             sh = NamedSharding(mesh, P("band", "space", None))
             bm_s = jax.device_put(bm, sh)
@@ -177,7 +176,7 @@ def _psf_hessian_maybe_space(b, bm, psfhat, lastsize, sigmainv,
             "nx=%d, nband=%d — using the single-program Hessian",
             ns, len(jax.devices()), nx, nband)
 
-    psfhat_j = to_device(psfhat)
+    psfhat_j = jnp.asarray(psfhat)
 
     def A(x):
         return hessian_psf_cube(x, psfhat_j, beam=bm,

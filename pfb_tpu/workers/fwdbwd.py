@@ -1,7 +1,7 @@
 """fwdbwd worker: generalised forward-backward with a nonlinear model
 parametrisation x = f(s).
 
-Working TPU-native implementation of the reference's design intent
+Working JAX implementation of the reference's design intent
 (pfb/workers/fwdbwd.py:23-474 — broken upstream: it imports a removed
 wavelet API at fwdbwd.py:85,181 and ships a live ipdb.set_trace at
 :236; SURVEY.md pitfalls). Per major iteration:
@@ -26,8 +26,7 @@ from functools import partial
 
 import numpy as np
 
-from pfb_tpu.config import to_device
-from pfb_tpu.ops.gridder import make_hessian_dds
+from pfb_tpu.ops.gridder import DEFAULT_BACKEND, make_hessian_dds
 from pfb_tpu.ops.psf import make_psf_convolve
 from pfb_tpu.ops.psi import make_psi, psi_dot, psi_hdot
 from pfb_tpu.opt.pcg import pcg
@@ -84,7 +83,7 @@ def _fwdbwd(ddsi=None, output_filename=None, product="I",
             pm_verbose=0, pm_report_freq=100, cg_tol=1e-4,
             cg_maxit=100, cg_minit=5, cg_verbose=0, cg_report_freq=10,
             backtrack=True, pd_tol=1e-4, pd_maxit=300, pd_verbose=0,
-            pd_report_freq=50, positivity=0, backend="dft",
+            pd_report_freq=50, positivity=0, backend=DEFAULT_BACKEND,
             epsilon=1e-7, do_wgridding=True, mask=None,
             model_name="MODEL", write=True, verbose=1,
             fits_mfs=False, fits_cubes=False, restart=False, **kw):
@@ -122,7 +121,7 @@ def _fwdbwd(ddsi=None, output_filename=None, product="I",
                             do_wgridding=do_wgridding)
     lastsize = dds[0]["PSF"].shape[-1]
 
-    psf_convolve = make_psf_convolve(to_device(psfhat), lastsize)
+    psf_convolve = make_psf_convolve(jnp.asarray(psfhat), lastsize)
 
     bases_t = tuple(bases.split(","))
     nbasis = len(bases_t)

@@ -1,20 +1,17 @@
 """grid worker: xds -> dds (dirty/PSF/PSFHAT/weights per (time, band)).
 
-TPU-native equivalent of pfb/workers/grid.py:124-588: image sizing from
+JAX equivalent of pfb/workers/grid.py:124-588: image sizing from
 uv_max (cell = cell_N / super_resolution_factor, even 5-smooth npix),
 ES-kernel uv counts -> Briggs robust weights, and the one-pass
 image_data_products per dataset. The xds beam is resampled onto the
-image grid per dataset (reference grid.py:404-412). ``row_shards``
-splits visibility rows over a device mesh for the gridding adjoints
-(SURVEY.md section 2.9 row parallelism; reference compute_counts'
-row-partitioned grids + fastim's task farm, weighting.py:59-73).
+image grid per dataset (reference grid.py:404-412).
 """
 
 import numpy as np
 
 from pfb_tpu.ops.dft import LIGHTSPEED
 from pfb_tpu.ops.fft import good_even_size
-from pfb_tpu.ops.gridder import image_data_products
+from pfb_tpu.ops.gridder import DEFAULT_BACKEND, image_data_products
 from pfb_tpu.ops.weighting import compute_counts, filter_extreme_counts
 from pfb_tpu.utils import dstore
 
@@ -25,11 +22,12 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
           dirty=True, psf=True, psf_oversize=2.0, residual=True,
           weight=True, filter_extreme_counts_flag=False,
           filter_level=10.0, filter_nbox=None, l2reweight_dof=None,
-          overwrite=True, write=True, backend="dft", epsilon=1e-7,
+          overwrite=True, write=True, backend=DEFAULT_BACKEND,
+          epsilon=1e-7,
           do_wgridding=True, double_accum=True,
           transfer_model_from=None, use_best_model=False, target=None,
           x0=0.0, y0=0.0, xds=None, fits_mfs=False, fits_cubes=False,
-          row_shards=0, **kw):
+          **kw):
     """Returns the list of dds datasets (and writes
     ``{output_filename}_{PRODUCT}_{suffix}.dds`` unless write=False).
 
@@ -103,30 +101,6 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
     if isinstance(mds, (str, bytes)):
         mds = dstore.read_store(str(mds))[0]
 
-    # row-sharded gridding: split each dataset's visibility rows over a
-    # device mesh; the adjoints psum partial uv grids (one collective
-    # per image, independent of the row count)
-    rd_mesh = None
-    if row_shards and int(row_shards) > 1:
-        from pfb_tpu.utils.logging import get_logger
-        if backend != "pg":
-            get_logger("grid").warning(
-                "row-shards=%s needs the 'pg' backend (got %r); "
-                "gridding single-device", row_shards, backend)
-        else:
-            import jax
-            from jax.sharding import Mesh
-            devs = jax.devices()
-            nsh = min(int(row_shards), len(devs))
-            if nsh > 1:
-                rd_mesh = Mesh(np.array(devs[:nsh]), ("space",))
-                get_logger("grid").info(
-                    "row-sharding gridding over %d devices", nsh)
-            else:
-                get_logger("grid").warning(
-                    "row-shards=%s but only %d device(s) visible; "
-                    "gridding single-device", row_shards, len(devs))
-
     def launch(ds):
         """Dispatch one dataset's device products (async) — chunk k+1
         launches before chunk k's host materialisation so device
@@ -134,10 +108,12 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
         same launch/finish pattern as workers/fastim.py)."""
         bandid = int(np.where(freqs_out == ds["freq_out"])[0][0])
         timeid = int(np.where(times_out == ds["time_out"])[0][0])
-        from pfb_tpu.config import to_device
-        uvw = jnp.asarray(ds["UVW"])
-        freq = jnp.asarray(ds["FREQ"])
-        vis = to_device(ds["VIS"])
+        # geometry stays float64 on the host: the gridder plans every
+        # position there (a float32 uvw is ~1e-2 rad of phase off at
+        # 4 km baselines in L band)
+        uvw = np.asarray(ds["UVW"])
+        freq = np.asarray(ds["FREQ"])
+        vis = jnp.asarray(ds["VIS"])
         wgt = jnp.asarray(ds["WEIGHT"])
         mask = jnp.asarray(ds["MASK"])
 
@@ -153,8 +129,7 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
                                        (ds["ra"], ds["dec"]))
 
         if robustness is not None:
-            # host counts: a once-per-run pass; the device scatter is
-            # per-index-bound on TPU (ops/weighting.py notes)
+            # host counts: a once-per-run pass
             from pfb_tpu.ops.weighting import compute_counts_host
             counts = jnp.asarray(compute_counts_host(
                 np.asarray(uvw), np.asarray(freq), np.asarray(mask),
@@ -179,34 +154,13 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
                 mds["cell_rad_x"], mds["cell_rad_y"],
                 mds.get("center_x", 0.0), mds.get("center_y", 0.0),
                 nx, ny, cell_rad, cell_rad, x0_ds, y0_ds)
-        if rd_mesh is not None:
-            # weights/wsum through the standard path, then the
-            # gridding adjoints through the row-sharded Pallas gridder
-            out = image_data_products(
-                uvw, freq, vis, wgt, mask, counts, nx, ny, nx_psf,
-                ny_psf, cell_rad, cell_rad, model=model,
-                robustness=robustness, x0=x0_ds, y0=y0_ds,
-                l2reweight_dof=l2reweight_dof, do_dirty=False,
-                do_psf=False, do_weight=True, do_residual=False,
-                backend=backend, epsilon=epsilon,
-                do_wgridding=do_wgridding, double_accum=double_accum)
-            out.update(_rowdist_products(
-                rd_mesh, ds["UVW"], ds["FREQ"], ds["VIS"],
-                np.asarray(out["WEIGHT"]), ds["MASK"], nx, ny, nx_psf,
-                ny_psf, cell_rad, model, x0_ds, y0_ds, epsilon,
-                do_wgridding, do_dirty=dirty, do_psf=psf,
-                do_residual=residual and model is not None))
-            if not weight:
-                out.pop("WEIGHT")
-        else:
-            out = image_data_products(
-                uvw, freq, vis, wgt, mask, counts, nx, ny, nx_psf,
-                ny_psf, cell_rad, cell_rad, model=model,
-                robustness=robustness, x0=x0_ds, y0=y0_ds,
-                l2reweight_dof=l2reweight_dof, do_dirty=dirty,
-                do_psf=psf, do_weight=weight, do_residual=residual,
-                backend=backend, epsilon=epsilon,
-                do_wgridding=do_wgridding, double_accum=double_accum)
+        out = image_data_products(
+            uvw, freq, vis, wgt, mask, counts, nx, ny, nx_psf, ny_psf,
+            cell_rad, cell_rad, model=model, robustness=robustness,
+            x0=x0_ds, y0=y0_ds, l2reweight_dof=l2reweight_dof,
+            do_dirty=dirty, do_psf=psf, do_weight=weight,
+            do_residual=residual, backend=backend, epsilon=epsilon,
+            do_wgridding=do_wgridding, double_accum=double_accum)
         return dict(ds=ds, out=out, counts=counts, model=model,
                     bandid=bandid, timeid=timeid, x0=x0_ds, y0=y0_ds)
 
@@ -235,8 +189,7 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
             out_ds["DIRTY"] = np.asarray(out["DIRTY"])
         if psf:
             out_ds["PSF"] = np.asarray(out["PSF"])
-            # PSFHAT is complex; keep device->host copy off the TPU
-            # complex-transfer path by storing real/imag views
+            # the dds stores complex PSFHAT as real/imag fields
             ph = out["PSFHAT"]
             out_ds["PSFHAT_real"] = np.asarray(ph.real)
             out_ds["PSFHAT_imag"] = np.asarray(ph.imag)
@@ -276,71 +229,6 @@ def _grid(xdsi=None, output_filename=None, product="I", suffix="main",
                 if fits_cubes:
                     dds2fits(dds, col, base)
     return dds
-
-
-def _rowdist_products(mesh, uvw, freq, vis, wgt_eff, mask, nx, ny,
-                      nx_psf, ny_psf, cell_rad, model, x0, y0,
-                      epsilon, do_wgridding, do_dirty=True,
-                      do_psf=True, do_residual=False):
-    """DIRTY/PSF(+PSFHAT)/RESIDUAL for one dataset through the
-    row-sharded Pallas gridder: each shard folds ITS rows into the
-    extended uv grids, one psum accumulates the subgrids
-    (parallel/dist.py:make_vis2dirty_rowdist). ``wgt_eff`` is the
-    effective imaging weight (robust/l2 applied); the mask rides in the
-    weights so padded/flagged rows contribute nothing. Degridding for
-    the residual/shifted-PSF visibilities stays single-device (the
-    adjoint dominates grid time)."""
-    import jax.numpy as jnp
-
-    from pfb_tpu.ops.fft import make_psfhat
-    from pfb_tpu.ops.gridder import get_backend, pad_rows, row_bucket
-    from pfb_tpu.parallel.dist import make_vis2dirty_rowdist
-
-    uvw = np.asarray(uvw)
-    freq = np.asarray(freq)
-    visa = np.asarray(vis)
-    we = np.asarray(wgt_eff) * np.asarray(mask)
-    nrow = uvw.shape[0]
-    kwd = dict(cellx=cell_rad, celly=cell_rad, epsilon=epsilon,
-               do_wgridding=do_wgridding, x0=x0, y0=y0)
-    out = {}
-
-    if do_dirty or do_residual:
-        v2d_img, _ = make_vis2dirty_rowdist(mesh, uvw, freq, nx=nx,
-                                            ny=ny, **kwd)
-    if do_dirty:
-        out["DIRTY"] = v2d_img(visa.real, visa.imag, we)
-
-    d2v = None
-    if do_residual or (do_psf and (x0 or y0)):
-        d2v, _ = get_backend("pg", epsilon, do_wgridding)
-        uvw_p, = pad_rows(row_bucket(nrow), jnp.asarray(uvw))
-
-    if do_residual:
-        # split (real, imag): complex never crosses host<->device
-        mvr, mvi = d2v(uvw_p, jnp.asarray(freq), jnp.asarray(model),
-                       cell_rad, cell_rad, x0=x0, y0=y0, split=True)
-        rvr = visa.real - np.asarray(mvr)[:nrow]
-        rvi = visa.imag - np.asarray(mvi)[:nrow]
-        out["RESIDUAL"] = v2d_img(rvr, rvi, we)
-
-    if do_psf:
-        v2d_psf, _ = make_vis2dirty_rowdist(mesh, uvw, freq, nx=nx_psf,
-                                            ny=ny_psf, **kwd)
-        if x0 or y0:
-            delta = jnp.zeros((128, 128), we.dtype)
-            delta = delta.at[64, 64].set(1.0)
-            pvr, pvi = d2v(uvw_p, jnp.asarray(freq), delta,
-                           cell_rad, cell_rad, x0=x0, y0=y0,
-                           split=True)
-            psf = v2d_psf(np.asarray(pvr)[:nrow],
-                          np.asarray(pvi)[:nrow], we)
-        else:
-            ones = np.ones(visa.shape, we.dtype)
-            psf = v2d_psf(ones, np.zeros_like(ones), we)
-        out["PSF"] = psf
-        out["PSFHAT"] = make_psfhat(psf)
-    return out
 
 
 def _eval_ds_beam(ds, nx, ny, cell_rad, x0, y0, real_type):

@@ -1,7 +1,7 @@
 """init worker: MS (+ optional gain table) -> per-chunk Stokes
 visibility store (xds).
 
-TPU-native equivalent of pfb/workers/init.py + utils/stokes2vis.py +
+JAX equivalent of pfb/workers/init.py + utils/stokes2vis.py +
 construct_mappings (utils/misc.py:250-487): reads the npz MS, groups
 rows per (FIELD_ID, DATA_DESC_ID, SCAN_NUMBER), splits each group's
 rows into time chunks (integrations_per_image) and channels into freq
@@ -236,7 +236,6 @@ def _init_one_ms(ms, product, channels_per_image,
 
     import jax.numpy as jnp
 
-    from pfb_tpu.config import to_device, to_host
 
     datasets = []
     pending = None
@@ -247,7 +246,7 @@ def _init_one_ms(ms, product, channels_per_image,
         weight_data dispatch and slab read happen BEFORE this runs
         for chunk k, overlapping host I/O with device compute
         (SURVEY.md 2.9.4; same pattern as workers/fastim.py)."""
-        vis = to_host(p["vis"])
+        vis = np.asarray(p["vis"])
         wout = np.asarray(p["wout"])
         if precision == "single":
             vis = vis.astype(np.complex64)
@@ -380,11 +379,11 @@ def _init_one_ms(ms, product, channels_per_image,
                 csel = chans[cloc]
                 jsel = fsel_gain[cloc]
                 vis, wout = weight_data(
-                    to_device(data_t[:, csel]),
+                    jnp.asarray(data_t[:, csel]),
                     jnp.asarray(wgt_t[:, csel]),
                     jnp.asarray(
                         flag_rc[:, cloc].astype(np.uint8)),
-                    to_device(np.ascontiguousarray(
+                    jnp.asarray(np.ascontiguousarray(
                         jones_g[:, :, jsel])),
                     jnp.asarray(tmap[rloc]),
                     jnp.asarray(ant1[rows]), jnp.asarray(ant2[rows]),

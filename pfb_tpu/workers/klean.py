@@ -1,6 +1,6 @@
 """klean worker: modified single-scale CLEAN major cycle.
 
-TPU-native equivalent of pfb/workers/klean.py:52-407: Clark minor
+JAX equivalent of pfb/workers/klean.py:52-407: Clark minor
 cycles on the apparent-scale residual, exact vis-space residual via the
 dataset Hessian, threshold = sigmathreshold*rms or absolute, optional
 PCG flux mop over the model-support mask, divergence guard, best-model
@@ -11,7 +11,7 @@ checkpoint/resume (resumes from the stored ``niters``).
 import numpy as np
 
 from pfb_tpu.deconv.clark import clark
-from pfb_tpu.ops.gridder import make_hessian_dds
+from pfb_tpu.ops.gridder import DEFAULT_BACKEND, make_hessian_dds
 from pfb_tpu.opt.pcg import pcg_psf
 from pfb_tpu.utils import dstore
 from pfb_tpu.utils.logging import get_logger
@@ -27,8 +27,8 @@ def _klean(ddsi=None, output_filename=None, product="I", suffix="main",
            minor_maxit=50, subminor_maxit=1000, mop_flux=True,
            mop_gamma=0.65, dirosion=1, cg_tol=1e-5, cg_maxit=100,
            cg_minit=10, cg_verbose=0, cg_report_freq=10,
-           backtrack=True, backend="dft", engine="fft",
-           epsilon=1e-7, do_wgridding=True, plane_block=0, mask=None,
+           backtrack=True, backend=DEFAULT_BACKEND,
+           epsilon=1e-7, do_wgridding=True, mask=None,
            write=True, band_chunk=None, verbose=1, report_freq=1,
            fits_mfs=False, fits_cubes=False, **kw):
     """Returns (model, residual_cube). Writes back into the dds store."""
@@ -72,15 +72,13 @@ def _klean(ddsi=None, output_filename=None, product="I", suffix="main",
     diverge_count = 0
     thresholdf = sigmathreshold * rms if threshold is None else threshold
 
-    from pfb_tpu.config import to_device
-    psfhat_j = to_device(psfhat)
+    psfhat_j = jnp.asarray(psfhat)
     psf_j = jnp.asarray(psf)
     wsums_j = jnp.asarray(wsums / wsum)
 
-    # exact-residual operator built once: one compiled program reused
-    # across major iterations (reference klean.py:175-178)
+    # exact-residual operator built once and reused across major
+    # iterations (reference klean.py:175-178)
     hess = make_hessian_dds(dds, nband, wsum, nx, ny, use_beam=False,
-                            plane_block=plane_block or None,
                             backend=backend, epsilon=epsilon,
                             do_wgridding=do_wgridding)
 

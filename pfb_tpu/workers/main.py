@@ -53,7 +53,7 @@ def _clickify(worker):
 @click.option("--process-id", type=int, default=None,
               help="This process's index in the multi-host run.")
 def cli(profile_dir, coordinator, num_processes, process_id):
-    """pfb-tpu: TPU-native radio-interferometric imaging suite."""
+    """pfb-tpu: JAX radio-interferometric imaging suite."""
     if profile_dir:
         from pfb_tpu.utils.profiling import start_profile
         start_profile(profile_dir)

@@ -1,8 +1,8 @@
 """Pipeline recipes: chain workers from a YAML file.
 
 The reference integrates with stimela so each worker is callable from
-recipe files (pfb/parser/uncabbedcabs.yml, pfb/stimela_cabs.yml). The
-TPU stack's equivalent is a self-contained recipe runner:
+recipe files (pfb/parser/uncabbedcabs.yml, pfb/stimela_cabs.yml). This
+stack's equivalent is a self-contained recipe runner:
 
     # recipe.yaml
     steps:

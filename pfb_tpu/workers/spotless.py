@@ -1,6 +1,6 @@
 """spotless worker: SARA wavelet-sparsity deconvolution (the PFB core).
 
-TPU-native equivalent of pfb/workers/spotless.py:57-426: image-space
+JAX equivalent of pfb/workers/spotless.py:57-426: image-space
 PSF-Hessian, power-method spectral norm, SARA dictionary, per-major-
 iteration primal-dual backward step with positivity, exact vis-space
 residual, l1-reweighting from iteration l1reweight_from, divergence
@@ -11,12 +11,11 @@ from functools import partial
 
 import numpy as np
 
-from pfb_tpu.ops.gridder import make_hessian_dds
+from pfb_tpu.ops.gridder import DEFAULT_BACKEND, make_hessian_dds
 from pfb_tpu.ops.psf import make_psf_convolve
 from pfb_tpu.ops.psi import make_psi, psi_dot, psi_hdot
-from pfb_tpu.opt.power_method import power_method
-from pfb_tpu.opt.primal_dual import (primal_dual,
-                                     primal_dual_hostloop)
+from pfb_tpu.opt.power_method import make_power_method_fused
+from pfb_tpu.opt.primal_dual import make_primal_dual_fused
 from pfb_tpu.utils import dstore
 from pfb_tpu.utils.logging import get_logger
 from pfb_tpu.utils.misc import fitcleanbeam
@@ -33,8 +32,8 @@ def _spotless(ddsi=None, output_filename=None, product="I",
               pm_tol=1e-5, pm_maxit=100, pm_verbose=0,
               pm_report_freq=100, pd_tol=1e-5, pd_maxit=500,
               pd_verbose=0, pd_report_freq=50, positivity=1,
-              epsilon=1e-7, do_wgridding=True, backend="dft",
-              engine="fft", plane_block=0, diverge_count=3,
+              epsilon=1e-7, do_wgridding=True, backend=DEFAULT_BACKEND,
+              diverge_count=3,
               write=True, band_chunk=None, verbose=1,
               fits_mfs=False, fits_cubes=False, **kw):
     """Returns (model, residual_cube). Writes back into the dds store."""
@@ -67,45 +66,19 @@ def _spotless(ddsi=None, output_filename=None, product="I",
 
     iter0 = int(dds[0].get("niters", 0))
 
-    nx_psf = dds[0]["PSF"].shape[-2]
-    if engine == "pallas" and nx % 128 == 0 and ny % 128 == 0 and \
-            nx_psf % 128 == 0 and ny_psf % 128 == 0:
-        from pfb_tpu.ops.psf import make_psf_convolve_pallas
-        psf_convolve = make_psf_convolve_pallas(psf, nx, ny)
-    else:
-        if engine == "pallas":
-            # the fused v3 pipeline needs 128-aligned image/PSF and
-            # psf_oversize=2; make the ~40x-slower fallback VISIBLE
-            get_logger("spotless").warning(
-                "engine='pallas' unsupported for shapes "
-                "nx=%d ny=%d psf=%dx%d (needs 128-aligned, "
-                "psf_oversize=2); falling back to engine='fft' "
-                "host-loop solvers", nx, ny, nx_psf, ny_psf)
-        from pfb_tpu.config import to_device
-        psfhat_j = to_device(psfhat)
-        psf_convolve = make_psf_convolve(psfhat_j, ny_psf,
-                                         band_chunk=band_chunk)
-
-    # fused Pallas engine: the transfer function must enter the fused
-    # while_loop solvers as a jit ARGUMENT (see make_pcg_bands_fused)
-    use_fused_pallas = hasattr(psf_convolve, "apply")
+    # the PSF-Hessian enters every solver as a jit ARGUMENT through the
+    # .apply/.consts hooks: a closed-over 2 GB PSFHAT (4096^2 x 8,
+    # psf_oversize=2) would be baked into the executable
+    psf_convolve = make_psf_convolve(jnp.asarray(psfhat), ny_psf,
+                                     band_chunk=band_chunk)
     if hessnorm is None:
-        if use_fused_pallas:
-            import jax
-            from pfb_tpu.opt.power_method import make_power_method_fused
-            pm = make_power_method_fused(psf_convolve.apply,
-                                         tol=pm_tol, maxit=pm_maxit,
-                                         verbosity=pm_verbose,
-                                         report_freq=pm_report_freq)
-            b0 = jax.random.normal(jax.random.PRNGKey(42),
-                                   (nband, nx, ny), dirty.dtype)
-            hessnorm, _ = pm(b0, psf_convolve.consts)
-        else:
-            hessnorm, _ = power_method(psf_convolve, (nband, nx, ny),
-                                       tol=pm_tol, maxit=pm_maxit,
-                                       dtype=dirty.dtype,
-                                       verbosity=pm_verbose,
-                                       report_freq=pm_report_freq)
+        import jax
+        pm = make_power_method_fused(psf_convolve.apply, tol=pm_tol,
+                                     maxit=pm_maxit, verbosity=pm_verbose,
+                                     report_freq=pm_report_freq)
+        b0 = jax.random.normal(jax.random.PRNGKey(42), (nband, nx, ny),
+                               dirty.dtype)
+        hessnorm, _ = pm(b0, psf_convolve.consts)
         hessnorm = float(hessnorm) * 1.05  # reference spotless.py:193
     if verbose:
         log.info(f"spotless: hessnorm = {hessnorm:.3e}")
@@ -153,20 +126,18 @@ def _spotless(ddsi=None, output_filename=None, product="I",
         log.info(f"spotless iter {iter0}: peak residual = {rmax:.3e}, "
               f"rms = {rms:.3e}")
 
-    # exact-residual operator built once (one compiled program reused
+    # exact-residual operator built once (one plan per dataset reused
     # across major iterations; reference spotless.py:186-190)
     hess = make_hessian_dds(dds, nband, wsum, nx, ny, use_beam=False,
                             backend=backend, epsilon=epsilon,
-                            do_wgridding=do_wgridding,
-                            plane_block=plane_block or None)
+                            do_wgridding=do_wgridding)
 
-    if use_fused_pallas:
-        from pfb_tpu.opt.primal_dual import make_primal_dual_fused
-        pd_solve = make_primal_dual_fused(
-            psf_convolve.apply, psiH, psiF, nbasis, rmsfactor,
-            alpha=alpha, tol=pd_tol, maxit=pd_maxit,
-            positivity=positivity, gamma=gamma, verbosity=pd_verbose,
-            report_freq=pd_report_freq)
+    # one fused program per reweight phase: PD iteration + in-loop
+    # reweight, with PSFHAT, data and weights as arguments
+    pd_solve = make_primal_dual_fused(
+        psf_convolve.apply, psiH, psiF, nbasis, rmsfactor, alpha=alpha,
+        tol=pd_tol, maxit=pd_maxit, positivity=positivity, gamma=gamma,
+        verbosity=pd_verbose, report_freq=pd_report_freq)
 
     dual_j = jnp.asarray(dual)
     for k in range(iter0, iter0 + niter):
@@ -175,45 +146,14 @@ def _spotless(ddsi=None, output_filename=None, product="I",
 
         rf = init_factor * rmsfactor if k == iter0 else rmsfactor
         do_rw = k + 1 - iter0 >= l1reweight_from
-
-        if use_fused_pallas:
-            # one fused XLA program: PD iteration + in-loop reweight,
-            # H/data/weights as arguments
-            rc = jnp.asarray(rms_comps) if do_rw else \
-                jnp.ones((1, 1, 1), dirty.dtype)
-            model_j, dual_j, l1weight, pd_iters = pd_solve(
-                jnp.asarray(model), dual_j, data, l1weight,
-                jnp.asarray(rf * rms, dirty.dtype),
-                jnp.asarray(hessnorm, dirty.dtype), rc,
-                psf_convolve.consts, do_reweight=do_rw)
-            model = np.asarray(model_j)
-        else:
-            def grad21(x, data=data):
-                return psf_convolve(x) - data
-
-            # l1 reweighting closure, active from l1reweight_from
-            # (reference spotless.py:357-371 and misc.py:1070-1080)
-            if do_rw:
-                from pfb_tpu.opt.primal_dual import l1reweight_func
-                rms_comps_j = jnp.asarray(rms_comps)
-
-                def reweighter(x):
-                    return l1reweight_func(psiH, rmsfactor,
-                                           rms_comps_j, x, alpha)
-            else:
-                reweighter = None
-
-            # non-v3 pallas shapes (no .apply) keep the host loop: an
-            # eager while_loop closing over the pipeline deoptimises it
-            pd_fn = primal_dual_hostloop if engine == "pallas" else \
-                primal_dual
-            model_j, dual_j, l1weight, pd_iters = pd_fn(
-                jnp.asarray(model), dual_j, rf * rms, psiH, psiF,
-                hessnorm, l1weight, grad21, reweighter=reweighter,
-                nu=nbasis, tol=pd_tol, maxit=pd_maxit,
-                positivity=positivity, gamma=gamma,
-                verbosity=pd_verbose, report_freq=pd_report_freq)
-            model = np.asarray(model_j)
+        rc = jnp.asarray(rms_comps) if do_rw else \
+            jnp.ones((1, 1, 1), dirty.dtype)
+        model_j, dual_j, l1weight, pd_iters = pd_solve(
+            jnp.asarray(model), dual_j, data, l1weight,
+            jnp.asarray(rf * rms, dirty.dtype),
+            jnp.asarray(hessnorm, dirty.dtype), rc, psf_convolve.consts,
+            do_reweight=do_rw)
+        model = np.asarray(model_j)
 
         conv = np.asarray(hess(model_j))
         residual = dirty - conv
@@ -282,8 +222,8 @@ def _spotless_dist(mesh=None, ddsi=None, output_filename=None,
                    bases="self,db1,db2", nlevels=3, l1reweight_from=5,
                    alpha=4.0, hessnorm=None, pm_tol=1e-5, pm_maxit=100,
                    pd_tol=1e-5, pd_maxit=500, positivity=1,
-                   epsilon=1e-7, do_wgridding=True, backend="dft",
-                   engine="fft", plane_block=0, space_shards=0,
+                   epsilon=1e-7, do_wgridding=True,
+                   backend=DEFAULT_BACKEND, space_shards=0,
                    write=True, verbose=1, **kw):
     """Mesh-resident spotless major cycle: the realisation of the
     reference's distributed design intent (pfb/workers/spotless.py:
@@ -297,18 +237,19 @@ def _spotless_dist(mesh=None, ddsi=None, output_filename=None,
     and (nbasis, Nymax, Nxmax) coefficient band-sums. L1WEIGHT is
     persisted for resume (reference spotless.py:536-546).
 
-    engine="pallas" runs every per-shard PSF-Hessian matvec (power
-    method, primal-dual gradient, data step) through the fused v3
-    Pallas pipeline — the reference's each-actor-holds-the-FAST-
-    operator design (spotless.py:429-667 + hessian.py:129-158) on the
-    mesh; backend="pg" evaluates the exact vis-space residual through
-    shard-local fused Pallas gridders instead of the DFT oracle.
+    Every per-shard PSF-Hessian matvec (power method, primal-dual
+    gradient, data step) is the XLA rFFT convolve on the shard's own
+    bands, and the exact vis-space residual runs each band's planned
+    gridder on the card that holds the band
+    (parallel.dist.make_hessian_dds_dist) — the reference's
+    each-actor-holds-the-fast-operator design (spotless.py:429-667 +
+    hessian.py:129-158) on the mesh.
 
     space_shards > 1 additionally shards the primal-dual backward step
     over a ('band', 'space') mesh: the DUAL cube — nbasis x the image
-    cube, the object that actually exceeds one device's HBM at scale —
+    cube, the object that outgrows one device's memory first —
     lives P('band', None, 'space', None) and the PD gradient runs the
-    distributed-rFFT2 convolve (engine is forced to 'fft'; see
+    distributed-rFFT2 convolve (see
     parallel.dist.primal_dual_space_dist). The band-local steps
     (power method, data step, exact residual) replicate across the
     space axis of each band row.
@@ -353,15 +294,6 @@ def _spotless_dist(mesh=None, ddsi=None, output_filename=None,
     if nspace > 1:
         assert nx % nspace == 0, \
             f"nx {nx} not divisible by mesh space axis {nspace}"
-        if engine == "pallas":
-            from pfb_tpu.ops.psf import v3_space_supported
-            if not v3_space_supported(nx, ny, nspace):
-                log.info(
-                    f"spotless-dist: space-sharded engine='pallas' "
-                    f"unsupported for image ({nx}, {ny}) on "
-                    f"{nspace} space shards (needs ny divisible by "
-                    f"nspace*128) — falling back to engine='fft'")
-                engine = "fft"
 
     dirty, model, residual, psf, psfhat, beam, wsums, dual = dds2cubes(
         dds, nband, apparent=False)
@@ -381,34 +313,8 @@ def _spotless_dist(mesh=None, ddsi=None, output_filename=None,
     model_d = jax.device_put(jnp.asarray(model), bands)
     resid_d = jax.device_put(jnp.asarray(residual), bands)
 
-    # engine selection: the fused Pallas v3 pipeline needs 128-aligned
-    # shapes and psf_oversize=2; warn (don't silently degrade) on
-    # fallback so a mis-sized production run is visible in the log
-    nx_psf = dds[0]["PSF"].shape[-2]
-    if engine == "pallas":
-        from pfb_tpu.ops.pallas_fft import v3_supported
-        if not (nx_psf == 2 * nx and ny_psf == 2 * ny
-                and v3_supported(nx, ny)):
-            log.info(
-                f"spotless-dist: engine='pallas' unsupported for "
-                f"image ({nx}, {ny}) / psf ({nx_psf}, {ny_psf}) "
-                f"(needs 128-aligned sizes and psf_oversize=2) — "
-                f"falling back to engine='fft'")
-            engine = "fft"
-    ekw = dict(engine=engine)
-    if engine == "pallas":
-        from pfb_tpu.ops.psf import prep_pallas_hessian
-        hsharding = jax.NamedSharding(
-            mesh, jax.sharding.PartitionSpec("band", None, None, None))
-        hr, hi, row_block = prep_pallas_hessian(psf, nx, ny)
-        hargs = (jax.device_put(hr, hsharding),) if hi is None else \
-            (jax.device_put(hr, hsharding),
-             jax.device_put(hi, hsharding))
-        del hr, hi
-        ekw.update(nx=nx, ny=ny, row_block=row_block, nh=len(hargs))
-    else:
-        ekw.update(lastsize=ny_psf)
-        hargs = (jax.device_put(jnp.asarray(psfhat), bands),)
+    ekw = dict(lastsize=ny_psf)
+    hargs = (jax.device_put(jnp.asarray(psfhat), bands),)
 
     psf_convolve = hessian_psf_dist(mesh, **ekw)
     if hessnorm is None:
@@ -449,35 +355,15 @@ def _spotless_dist(mesh=None, ddsi=None, output_filename=None,
 
     if nspace > 1:
         # PD backward step over ('band','space'): sharded dual cube +
-        # space-distributed gradient — the v3 Pallas pipeline with
-        # all_to_all stage transposes when engine='pallas'
-        # (parallel/dist.py:_space_pallas_conv_local), else the
-        # distributed-rFFT2 convolve
-        if engine == "pallas":
-            from pfb_tpu.ops.psf import prep_pallas_hessian_space
-            hr_s, hi_s, _ = prep_pallas_hessian_space(
-                psf, nx, ny, nspace)
-            hsp = jax.NamedSharding(
-                mesh, jax.sharding.PartitionSpec(
-                    "band", None, "space", None))
-            pd_h = (jax.device_put(hr_s, hsp),) if hi_s is None \
-                else (jax.device_put(hr_s, hsp),
-                      jax.device_put(hi_s, hsp))
-            del hr_s, hi_s
-            pd = primal_dual_space_dist(
-                mesh, psi, nu=nbasis, tol=pd_tol, maxit=pd_maxit,
-                positivity=positivity, gamma=gamma,
-                rmsfactor=rmsfactor, alpha=alpha, engine="pallas",
-                nx=nx, ny=ny, nh=len(pd_h))
-        else:
-            pd = primal_dual_space_dist(
-                mesh, psi, ny_psf, nu=nbasis, tol=pd_tol,
-                maxit=pd_maxit, positivity=positivity, gamma=gamma,
-                rmsfactor=rmsfactor, alpha=alpha)
-            pd_h = jax.device_put(
-                prep_psfhat_space(jnp.asarray(psfhat), nspace),
-                jax.NamedSharding(mesh, jax.sharding.PartitionSpec(
-                    "band", None, "space")))
+        # space-distributed rFFT2 gradient
+        pd = primal_dual_space_dist(
+            mesh, psi, ny_psf, nu=nbasis, tol=pd_tol, maxit=pd_maxit,
+            positivity=positivity, gamma=gamma, rmsfactor=rmsfactor,
+            alpha=alpha)
+        pd_h = jax.device_put(
+            prep_psfhat_space(jnp.asarray(psfhat), nspace),
+            jax.NamedSharding(mesh, jax.sharding.PartitionSpec(
+                "band", None, "space")))
     else:
         pd = primal_dual_dist(mesh, psi, nu=nbasis, tol=pd_tol,
                               maxit=pd_maxit, positivity=positivity,
@@ -487,8 +373,7 @@ def _spotless_dist(mesh=None, ddsi=None, output_filename=None,
     hess_exact = make_hessian_dds_dist(mesh, dds, nband, wsum, nx, ny,
                                        use_beam=False, backend=backend,
                                        epsilon=epsilon,
-                                       do_wgridding=do_wgridding,
-                                       plane_block=plane_block or None)
+                                       do_wgridding=do_wgridding)
 
     residual_mfs = np.asarray(jnp.sum(resid_d, axis=0))
     rms = np.std(residual_mfs)

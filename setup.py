@@ -3,9 +3,9 @@ from setuptools import find_packages, setup
 setup(
     name="pfb_tpu",
     version="0.1.0",
-    description=("TPU-native radio-interferometric imaging: the "
+    description=("Radio-interferometric imaging: the "
                  "pre-conditioned forward-backward deconvolution stack "
-                 "in JAX/XLA/Pallas"),
+                 "in JAX/XLA"),
     packages=find_packages(include=["pfb_tpu", "pfb_tpu.*"]),
     package_data={"pfb_tpu.parser": ["*.yaml", "*.yml"],
                   "pfb_tpu.native": ["*.cc"]},

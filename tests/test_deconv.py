@@ -76,3 +76,20 @@ def test_hogbom_status_flags_maxit():
     x, IR, status = hogbom(jnp.asarray(dirty), jnp.asarray(psf),
                            threshold=0.0, gamma=0.05, pf=1e-8, maxit=3)
     assert int(status) == 1
+
+
+@pytest.mark.parametrize("nband", [4, 8])
+def test_clark_many_bands_recovers_fluxes(nband):
+    """With wsums ~ 1/nband per band, every subminor subtraction must
+    match the flux the model gains (a subtraction short by wsums makes
+    the outer exact convolution overshoot, and klean diverged at 8
+    bands)."""
+    model, dirty, psf, psfhat, wsums = _make_problem(nband=nband, seed=3)
+    x, IR, status = clark(jnp.asarray(dirty), jnp.asarray(psf),
+                          jnp.asarray(psfhat), jnp.asarray(wsums),
+                          threshold=1e-4, gamma=0.1, pf=1e-5,
+                          maxit=30, subpf=0.5, submaxit=2000)
+    x = np.asarray(x)
+    for i, j in np.argwhere(model[0] > 0):
+        assert_allclose(x[:, i, j], model[:, i, j], atol=5e-3)
+    assert np.abs(np.asarray(IR)).max() < 0.05 * np.abs(dirty).max()

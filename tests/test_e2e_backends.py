@@ -1,6 +1,6 @@
 """End-to-end flux recovery through the FAST gridder backends.
 
-The unit suites validate 'wgrid'/'mm'/'pg' against the exact-DFT
+The unit suites validate 'wgrid' against the exact-DFT
 oracle per call; this runs the whole init -> grid -> klean pipeline
 through them (reference tests/test_klean.py semantics) so a w-term or
 grid-correction bug that cancels at unit scale cannot ship.
@@ -57,7 +57,7 @@ def klean_dft(sim, tmp_path_factory):
     return rec, resid
 
 
-@pmp("backend", ["wgrid", "mm", "pg"])
+@pmp("backend", ["wgrid"])
 def test_klean_through_backend(sim, klean_dft, tmp_path, backend):
     """klean major cycles through the fast backend track the exact-DFT
     run: the minors are identical given the same inputs, so any drift
@@ -82,7 +82,7 @@ def test_klean_through_backend(sim, klean_dft, tmp_path, backend):
 
 def test_degrid_regrid_residual_consistency(sim, klean_dft, tmp_path):
     """The reference R/R.H round trip
-    (tests/test_spotless.py:322-325) through backend "mm": fit the
+    (tests/test_spotless.py:322-325) through backend "wgrid": fit the
     CLEAN model to components, (a) re-grid with --transfer-model-from
     and (b) degrid the model into MODEL_DATA, re-init with
     DATA-MODEL_DATA column arithmetic and re-grid — both residual
@@ -96,7 +96,7 @@ def test_degrid_regrid_residual_consistency(sim, klean_dft, tmp_path):
     nband = rec.shape[0]
     dds = _grid(xdsi=p["xds"], output_filename=str(tmp_path / "o"),
                 suffix="main", field_of_view=0.25, robustness=0.0,
-                psf=True, residual=False, backend="mm")
+                psf=True, residual=False, backend="wgrid")
     wsum = np.sum([ds["WSUM"][0] for ds in dds])
     for ds in dds:
         ds["MODEL"] = rec[ds["bandid"]]
@@ -106,7 +106,7 @@ def test_degrid_regrid_residual_consistency(sim, klean_dft, tmp_path):
     # (a) --transfer-model-from: residual computed at grid time
     dds_t = _grid(xdsi=p["xds"], output_filename=str(tmp_path / "t"),
                   suffix="main", field_of_view=0.25, robustness=0.0,
-                  psf=False, residual=True, backend="mm",
+                  psf=False, residual=True, backend="wgrid",
                   transfer_model_from=mds)
     res_t = np.zeros_like(resid)
     for ds in dds_t:
@@ -115,20 +115,20 @@ def test_degrid_regrid_residual_consistency(sim, klean_dft, tmp_path):
     assert np.abs(res_t - resid).max() < 1e-4 * scale
 
     # (b) degrid -> DATA-MODEL_DATA -> re-grid: dirty == residual
-    _degrid(ms=p["ms_path"], mds=mds, backend="mm",
+    _degrid(ms=p["ms_path"], mds=mds, backend="wgrid",
             channels_per_image=1)
     xds2 = _init(ms=p["ms_path"], write=False,
                  data_column="DATA-MODEL_DATA", channels_per_image=1)
     dds_r = _grid(xdsi=xds2, output_filename=str(tmp_path / "r"),
                   suffix="main", field_of_view=0.25, robustness=0.0,
-                  psf=False, residual=False, backend="mm")
+                  psf=False, residual=False, backend="wgrid")
     res_r = np.zeros_like(resid)
     for ds in dds_r:
         res_r[ds["bandid"]] += ds["DIRTY"] / wsum
     assert np.abs(res_r - resid).max() < 1e-4 * scale
 
 
-@pmp("backend", ["wgrid", "mm", "pg"])
+@pmp("backend", ["wgrid"])
 def test_dirty_parity_between_backends(sim, tmp_path, backend):
     """grid through the fast backend == grid through the DFT oracle
     at the gridder's epsilon (catches normalisation/x0/y0 drift at

@@ -1,5 +1,6 @@
-"""Fused solver factories (jit with operator constants as arguments —
-the Pallas-engine path): exact parity with the eager solvers."""
+"""Fused solver factories (jit with operator constants as arguments,
+make_psf_convolve's .apply/.consts hooks): exact parity with the eager
+solvers."""
 
 import numpy as np
 import pytest
@@ -119,23 +120,83 @@ def test_primal_dual_fused_matches_eager(do_rw):
     assert_allclose(np.asarray(w1), np.asarray(w2), atol=1e-12)
 
 
-def test_spotless_pallas_engine_fused(tmp_path, monkeypatch):
-    """spotless with engine='pallas' (interpret-mode pipeline on CPU)
-    runs the fused PD path and recovers flux like the fft engine."""
+@pytest.mark.parametrize("use_beam", [False, True])
+@pytest.mark.parametrize("sigmainv,wsum", [(0.0, None), (1e-3, 2.5)])
+def test_psf_convolve_hooks_match_matvec(use_beam, sigmainv, wsum):
+    """matvec.apply(x, matvec.consts) is the same operator as
+    matvec(x), for every beam / Tikhonov / wsum combination."""
+    psf, psfhat, model = _setup(seed=13)
+    beam = None
+    if use_beam:
+        nx = model.shape[-1]
+        xg = (np.arange(nx) - nx // 2) / nx
+        beam = jnp.asarray(np.exp(-(xg[:, None]**2 + xg[None, :]**2)))
+    hess = make_psf_convolve(psfhat, psf.shape[-1], beam=beam,
+                             sigmainv=sigmainv, wsum=wsum)
+    assert hess.consts["psfhat"] is psfhat
+    assert_allclose(np.asarray(hess.apply(model, hess.consts)),
+                    np.asarray(hess(model)), rtol=1e-12, atol=1e-14)
+
+
+@pytest.mark.parametrize("solver", ["pcg", "pm", "pd"])
+def test_fused_solvers_on_psf_convolve_hooks(solver):
+    """The three fused solvers run on make_psf_convolve's .apply /
+    .consts hooks (PSFHAT a jit argument) and agree with the eager
+    solvers closing over the matvec."""
     import jax
+    from functools import partial
 
-    if jax.default_backend() == "tpu":
-        pytest.skip("interpret-mode test")
+    from pfb_tpu.ops.psi import make_psi, psi_dot, psi_hdot
+    from pfb_tpu.opt.pcg import make_pcg_bands_fused, pcg_bands
+    from pfb_tpu.opt.power_method import (make_power_method_fused,
+                                          power_method)
+    from pfb_tpu.opt.primal_dual import (make_primal_dual_fused,
+                                         primal_dual)
 
-    import pfb_tpu.ops.pallas_fft as pf
-    orig = pf.psf_convolve_pallas_v3_cube
+    psf, psfhat, model = _setup(seed=17)
+    hess = make_psf_convolve(psfhat, psf.shape[-1], sigmainv=1e-3)
+    if solver == "pcg":
+        b = hess(model)
+        x1 = pcg_bands(hess, b, tol=1e-10, maxit=40, minit=5,
+                       backtrack=False)
+        solve = make_pcg_bands_fused(hess.apply, tol=1e-10, maxit=40,
+                                     minit=5, backtrack=False)
+        x2 = solve(b, jnp.zeros_like(b), hess.consts)
+        assert_allclose(np.asarray(x1), np.asarray(x2), atol=1e-9)
+    elif solver == "pm":
+        b0 = jax.random.normal(jax.random.PRNGKey(1), model.shape,
+                               model.dtype)
+        beta1, _ = power_method(hess, model.shape, b0=b0, tol=1e-8,
+                                maxit=100, dtype=model.dtype)
+        pm = make_power_method_fused(hess.apply, tol=1e-8, maxit=100)
+        beta2, _ = pm(b0, hess.consts)
+        assert_allclose(float(beta1), float(beta2), rtol=1e-12)
+    else:
+        nband, nx, ny = model.shape
+        psi = make_psi(nx, ny, ("self", "db1"), 2)
+        psiH = partial(psi_dot, psi=psi)
+        psiF = partial(psi_hdot, psi=psi)
+        data = hess(model)
+        l1w = jnp.ones((2, psi.Nymax, psi.Nxmax), model.dtype)
+        v0 = jnp.zeros((nband, 2, psi.Nymax, psi.Nxmax), model.dtype)
+        x1, _, _, k1 = primal_dual(
+            jnp.zeros_like(model), v0, 1e-3, psiH, psiF, 2.0, l1w,
+            lambda z: hess(z) - data, nu=2, tol=1e-7, maxit=60)
+        solve = make_primal_dual_fused(hess.apply, psiH, psiF, 2, 1.0,
+                                       tol=1e-7, maxit=60)
+        x2, _, _, k2 = solve(jnp.zeros_like(model), v0, data, l1w,
+                             jnp.asarray(1e-3, model.dtype),
+                             jnp.asarray(2.0, model.dtype),
+                             jnp.ones((1, 1, 1), model.dtype),
+                             hess.consts)
+        assert int(k1) == int(k2)
+        assert_allclose(np.asarray(x1), np.asarray(x2), atol=1e-12)
 
-    def patched(*a, **k):
-        k["interpret"] = True
-        return orig(*a, **k)
 
-    monkeypatch.setattr(pf, "psf_convolve_pallas_v3_cube", patched)
-
+def test_spotless_exact_residual_backends_agree(tmp_path):
+    """spotless runs the fused PD on the XLA convolve; its exact
+    vis-space residual through the planned 'wgrid' gridder matches the
+    exact-DFT oracle's."""
     from pfb_tpu.utils.ms import simulate_ms
     from pfb_tpu.workers.grid import _grid
     from pfb_tpu.workers.init import _init
@@ -146,56 +207,17 @@ def test_spotless_pallas_engine_fused(tmp_path, monkeypatch):
                 fov_deg=0.2, seed=3, gains=False)
     out = str(tmp_path / "o")
     xds = _init(ms=ms, output_filename=out, channels_per_image=1)
-    # pad the image to a v3-supported size (ny % 128 == 0)
     dds = _grid(xdsi=xds, output_filename=out, suffix="main",
                 field_of_view=0.2, robustness=0.0, psf=True,
-                residual=False, nx=128, ny=128)
-    model_fft, _ = _spotless(ddsi=[dict(d) for d in dds],
-                             output_filename=out + "f", niter=2,
-                             rmsfactor=0.8, gamma=1.0,
-                             l1reweight_from=1, pd_maxit=50,
-                             engine="fft", verbose=0, write=False)
-    model_pl, _ = _spotless(ddsi=[dict(d) for d in dds],
-                            output_filename=out + "p", niter=2,
-                            rmsfactor=0.8, gamma=1.0,
-                            l1reweight_from=1, pd_maxit=50,
-                            engine="pallas", verbose=0, write=False)
-    assert np.abs(model_pl).max() > 0
-    # same algorithm, different FFT arithmetic order: close, not equal
-    denom = np.abs(model_fft).max()
-    assert np.abs(model_pl - model_fft).max() / denom < 1e-3
-
-
-def test_pcg_cg_fused_kernels_match_fixed_iter():
-    """The CG-fused kernel path (direction update in K1, [p.Ap, p.p]
-    reductions in K3, wsum/sigmainv folded into the update pass) is
-    the same arithmetic as pcg_bands' fixed-iteration body."""
-    import jax
-
-    from pfb_tpu.ops.psf import make_psf_convolve_pallas
-    from pfb_tpu.opt.pcg import make_pcg_bands_fused, pcg_bands
-
-    nband, nx = 2, 128
-    rng = np.random.default_rng(11)
-    xg = np.arange(2 * nx) - nx
-    xx, yy = np.meshgrid(xg, xg, indexing="ij")
-    psf = np.zeros((nband, 2 * nx, 2 * nx), np.float32)
-    for b in range(nband):
-        psf[b] = 0.4 * np.exp(-0.5 * (xx**2 + yy**2) / (3.0 + b) ** 2)
-        psf[b, nx, nx] += 0.6
-    ws = jnp.asarray(
-        np.array([1.0, 1.5], np.float32))[:, None, None]
-    conv = make_psf_convolve_pallas(jnp.asarray(psf), nx, nx,
-                                    sigmainv=1e-2, wsum=ws)
-    assert hasattr(conv, "apply_cg")
-    model = np.zeros((nband, nx, nx), np.float32)
-    model[:, nx // 3, nx // 2] = 1.0
-    b = conv(jnp.asarray(model))
-    x0 = jnp.zeros_like(b)
-    x_ref = np.asarray(pcg_bands(conv, b, x0=x0, tol=0.0, maxit=25))
-    solve = make_pcg_bands_fused(conv.apply, tol=0.0, maxit=25,
-                                 apply_cg=conv.apply_cg,
-                                 cg_scale=conv.cg_scale)
-    x_cg = np.asarray(solve(b, x0, conv.consts))
-    denom = np.abs(x_ref).max()
-    assert np.abs(x_cg - x_ref).max() / denom < 2e-5
+                residual=False, backend="dft")
+    kw = dict(niter=2, rmsfactor=0.8, gamma=1.0, l1reweight_from=1,
+              pd_maxit=50, verbose=0, write=False)
+    model_d, resid_d = _spotless(ddsi=[dict(d) for d in dds],
+                                 backend="dft", **kw)
+    model_w, resid_w = _spotless(ddsi=[dict(d) for d in dds],
+                                 backend="wgrid", epsilon=1e-9, **kw)
+    assert np.abs(model_w).max() > 0
+    denom = np.abs(resid_d).max()
+    assert np.abs(resid_w - resid_d).max() / denom < 1e-6
+    assert np.abs(model_w - model_d).max() / np.abs(model_d).max() \
+        < 1e-6

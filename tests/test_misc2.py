@@ -1,7 +1,5 @@
-"""Coverage for restoration helpers, island removal, host-loop PCG and
-give_edges."""
+"""Coverage for restoration helpers, island removal and give_edges."""
 
-import jax.numpy as jnp
 import numpy as np
 from numpy.testing import assert_allclose
 
@@ -39,27 +37,3 @@ def test_give_edges_overlap():
     # psf slice is the lower-right quadrant
     assert ix == slice(0, 64) and iy == slice(0, 64)
     assert ipx == slice(64, 128) and ipy == slice(64, 128)
-
-
-def test_pcg_hostloop_matches_device():
-    from pfb_tpu.ops.fft import make_psfhat
-    from pfb_tpu.ops.psf import make_psf_convolve
-    from pfb_tpu.opt.pcg import pcg_bands, pcg_bands_hostloop
-    rng = np.random.default_rng(3)
-    nband, nx = 2, 32
-    xg = np.arange(2 * nx) - nx
-    xx, yy = np.meshgrid(xg, xg, indexing="ij")
-    psf = np.zeros((nband, 2 * nx, 2 * nx))
-    for b in range(nband):
-        psf[b] = 0.5 * np.exp(-0.5 * (xx**2 + yy**2) / (1.5 + b) ** 2)
-        psf[b, nx, nx] += 0.5
-    hess = make_psf_convolve(make_psfhat(jnp.asarray(psf)), 2 * nx,
-                             sigmainv=1e-3)
-    model = np.zeros((nband, nx, nx))
-    model[:, 10, 12] = 1.0
-    b = hess(jnp.asarray(model))
-    x1 = np.asarray(pcg_bands(hess, b, tol=1e-10, maxit=100, minit=10,
-                              backtrack=False))
-    x2 = np.asarray(pcg_bands_hostloop(hess, b, tol=1e-10, maxit=100,
-                                       minit=10))
-    assert_allclose(x1, x2, atol=1e-10)

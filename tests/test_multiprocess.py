@@ -22,7 +22,7 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 pid = int(sys.argv[1])
 from pfb_tpu.parallel.runtime import set_client
-mesh = set_client(nband=4, precision="double", cache_dir=None,
+mesh = set_client(nband=4, precision="double", compile_cache=False,
                   coordinator="localhost:{port}", num_processes=2,
                   process_id=pid)
 assert len(jax.devices()) == 4, jax.devices()

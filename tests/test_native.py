@@ -1,7 +1,13 @@
-"""Native (C++) plan builder == numpy planner, bit for bit."""
+"""Native (C++) uv counts == the numpy counts, and the build's
+fallbacks."""
+
+import os
 
 import numpy as np
 import pytest
+
+import pfb_tpu.native as native
+from pfb_tpu.ops.weighting import compute_counts_host
 
 
 def _geometry(nrow, nchan, nx, seed):
@@ -11,108 +17,40 @@ def _geometry(nrow, nchan, nx, seed):
     freq = np.linspace(0.9e9, 1.1e9, nchan)
     umax = np.abs(uvw[:, :2]).max() * freq[-1] / 299792458.0
     cell = 1.0 / (2 * umax * 2.0)
-    return uvw, freq, cell
+    mask = (rng.random((nrow, nchan)) > 0.1).astype(np.float64)
+    return uvw, freq, cell, mask
 
 
-@pytest.mark.parametrize("nrow,nchan,nx,do_w",
-                         [(2000, 3, 128, True),
-                          (5000, 2, 300, True),   # non-128-aligned
-                          (3000, 1, 64, False)])  # nw == 1
-def test_pg_plan_native_matches_numpy(nrow, nchan, nx, do_w):
-    from pfb_tpu.native import get_lib, pg_plan_native
-    from pfb_tpu.ops.mmgridder import _tile_geometry
-    from pfb_tpu.ops.pgridder import _pg_plan_numpy, w_geometry
-    from pfb_tpu.ops.wgridder import _grid_setup, kernel_params
-
-    if get_lib() is None:
+@pytest.mark.parametrize("nrow,nchan,nx",
+                         [(2000, 3, 128), (5000, 2, 300), (3000, 1, 64)])
+def test_native_counts_match_numpy(monkeypatch, nrow, nchan, nx):
+    if native.get_lib() is None:
         pytest.skip("no C++ toolchain")
-    uvw, freq, cell = _geometry(nrow, nchan, nx, seed=nx)
-    k, _ = kernel_params(1e-5)
-    Nx, Ny = _grid_setup(nx, nx, cell, cell, 2.0)
-    nw, w0, dw = w_geometry(uvw, freq, nx, nx, cell, cell, 0.0, 0.0,
-                            2.0, k, do_w)
-    txs, tys = _tile_geometry(Nx, Ny, k, None, None)
-    ntx, nty = -(-Nx // txs), -(-Ny // tys)
-    C = 64
-
-    pos_n, tid_n, idx_n, pm_n, ne = _pg_plan_numpy(
-        uvw, freq, Nx, Ny, cell, cell, txs, tys, ntx, nty, w0, dw,
-        nw, C, k)
-    pos_c, tid_c, idx_c, pm_c = pg_plan_native(
-        uvw, freq, Nx=Nx, Ny=Ny, cellx=cell, celly=cell, txs=txs,
-        tys=tys, ntx=ntx, nty=nty, w0=w0, dw=dw, nw=nw, C=C, k=k)
-    assert tid_c.size == ne
-    assert np.array_equal(tid_n.astype(np.int32), tid_c)
-    assert np.array_equal(idx_n.astype(np.int32), idx_c)
-    assert np.array_equal(pm_n.astype(np.float64), pm_c)
-    assert np.array_equal(pos_n, pos_c)
+    uvw, freq, cell, mask = _geometry(nrow, nchan, nx, nx)
+    got = native.pg_counts_native(uvw, freq, mask, nx, nx, cell, cell)
+    monkeypatch.setattr(native, "get_lib", lambda: None)
+    ref = compute_counts_host(uvw, freq, mask, nx, nx, cell, cell)
+    np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-12)
 
 
-def test_pgrid_plan_uses_native_and_fallback(monkeypatch):
-    """pgrid_plan produces the same plan through the native path and
-    the PFB_TPU_NO_NATIVE fallback."""
-    import pfb_tpu.native as native
-    from pfb_tpu.ops.pgridder import pgrid_plan
-
-    uvw, freq, cell = _geometry(1500, 2, 128, seed=9)
-    kw = dict(nx=128, ny=128, cellx=cell, celly=cell, epsilon=1e-5,
-              do_wgridding=True)
-    p1 = pgrid_plan(uvw, freq, **kw)
-    monkeypatch.setattr(native, "pg_plan_native",
-                        lambda *a, **k: None)
-    p2 = pgrid_plan(uvw, freq, **kw)
-    for key in ("pos", "tid", "idx", "pm"):
-        assert np.array_equal(np.asarray(p1[key]), np.asarray(p2[key]))
-    assert p1["nentries"] == p2["nentries"]
+def test_native_counts_refuse_wide_stencil():
+    """The C++ kernel's tap buffer holds 16 taps: a wider stencil
+    returns None (numpy fallback) instead of writing out of bounds."""
+    if native.get_lib() is None:
+        pytest.skip("no C++ toolchain")
+    uvw, freq, cell, mask = _geometry(100, 1, 32, 0)
+    assert native.pg_counts_native(uvw, freq, mask, 32, 32, cell, cell,
+                                   k=18) is None
 
 
-def test_gs_plan_native_bit_identical():
-    """The native global-stream plan builder (pg_gs_count/pg_gs_fill)
-    must reproduce the numpy lexsort path bit-for-bit (same contract
-    as pg_plan_native for the unblocked planner)."""
-    import numpy as np
-
-    from pfb_tpu.native import get_lib, pg_gs_plan_native
-    from pfb_tpu.ops import pg_stream as gs
-    from pfb_tpu.ops.mmgridder import _tile_geometry
-    from pfb_tpu.ops.pgridder import w_geometry
-    from pfb_tpu.ops.wgridder import _grid_setup, kernel_params
-
-    if get_lib() is None:
-        import pytest
-        pytest.skip("no native toolchain")
-    rng = np.random.default_rng(7)
-    nrow, nchan, nx = 5000, 3, 256
-    uvw = rng.normal(scale=100.0, size=(nrow, 3))
-    uvw[:, 2] *= 0.15
-    freq = np.linspace(0.9e9, 1.1e9, nchan)
-    umax = np.abs(uvw[:, :2]).max() * freq[-1] / 299792458.0
-    cell = 1.0 / (2.0 * umax * 2.0)
-    k, _ = kernel_params(1e-5)
-    Nx, Ny = _grid_setup(nx, nx, cell, cell, 2.0)
-    nw, w0, dw = w_geometry(uvw, freq, nx, nx, cell, cell, 0, 0, 2.0,
-                            k, True)
-    txs, tys = _tile_geometry(Nx, Ny, k, None, None)
-    ntx, nty = -(-Nx // txs), -(-Ny // tys)
-    args = dict(Nx=Nx, Ny=Ny, cellx=cell, celly=cell, txs=txs,
-                tys=tys, ntx=ntx, nty=nty, w0=w0, dw=dw, nw=nw,
-                C=128, k=k)
-    nat = pg_gs_plan_native(uvw, freq, **args)
-    ref = gs._pg_plan_gs.__wrapped__(uvw, freq, Nx, Ny, cell, cell,
-                                     txs, tys, ntx, nty, w0, dw, nw,
-                                     128, k) \
-        if hasattr(gs._pg_plan_gs, "__wrapped__") else None
-    if ref is None:
-        # call the numpy body by disabling the native fast path
-        import pfb_tpu.native as N
-        lib, tried = N._lib, N._lib_tried
-        N._lib, N._lib_tried = None, True
-        try:
-            ref = gs._pg_plan_gs(uvw, freq, Nx, Ny, cell, cell, txs,
-                                 tys, ntx, nty, w0, dw, nw, 128, k)
-        finally:
-            N._lib, N._lib_tried = lib, tried
-    for name, a, b in zip(("pos", "gidx", "gpm", "utid", "pmin",
-                           "pmax", "sxy"), nat, ref):
-        assert np.array_equal(np.asarray(a, np.float64),
-                              np.asarray(b, np.float64)), name
+def test_native_build_lands_in_checkout(monkeypatch):
+    """Without PFB_TPU_NATIVE_CACHE the library is built under the
+    checkout's .native_build directory, never outside it."""
+    monkeypatch.delenv("PFB_TPU_NATIVE_CACHE", raising=False)
+    path = native._build_lib()
+    if path is None:
+        pytest.skip("no C++ toolchain")
+    checkout = os.path.dirname(os.path.dirname(os.path.dirname(
+        native.__file__)))
+    assert os.path.dirname(path) == os.path.join(checkout,
+                                                 ".native_build")

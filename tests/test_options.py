@@ -67,12 +67,12 @@ def test_rephase_to_matches_independent_uvw():
     assert np.abs(vis_r - vis_B).max() < 1e-6
 
 
-def test_double_accum_mm_closer_to_f64():
+def test_double_accum_closer_to_f64():
     """f32 gridding with double_accum=True must be at least as close
     to the f64 answer as plain f32 accumulation."""
     import jax.numpy as jnp
 
-    from pfb_tpu.ops.mmgridder import vis2dirty_mm
+    from pfb_tpu.ops.wgridder import vis2dirty_wgrid
 
     rng = np.random.default_rng(3)
     nrow, nchan, nx = 3000, 2, 64
@@ -86,12 +86,11 @@ def test_double_accum_mm_closer_to_f64():
 
     kw = dict(nx=nx, ny=nx, cellx=cell, celly=cell, epsilon=1e-5,
               do_wgridding=True)
-    ref = np.asarray(vis2dirty_mm(uvw, freq, vis, **kw))  # f64 in/out
-    d32 = np.asarray(vis2dirty_mm(uvw, freq,
-                                  vis.astype(np.complex64), **kw))
-    d64 = np.asarray(vis2dirty_mm(uvw, freq,
-                                  vis.astype(np.complex64),
-                                  double_accum=True, **kw))
+    ref = np.asarray(vis2dirty_wgrid(uvw, freq, vis, **kw))  # f64
+    v32 = jnp.asarray(vis.astype(np.complex64))
+    d32 = np.asarray(vis2dirty_wgrid(uvw, freq, v32, **kw))
+    d64 = np.asarray(vis2dirty_wgrid(uvw, freq, v32, double_accum=True,
+                                     **kw))
     scale = np.abs(ref).max()
     e32 = np.abs(d32 - ref).max() / scale
     e64 = np.abs(d64 - ref).max() / scale

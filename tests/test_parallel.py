@@ -199,66 +199,6 @@ def test_hessian_space_dist_fft_matches_local():
             assert_allclose(out, ref, rtol=1e-11, atol=1e-11)
 
 
-def test_vis2dirty_rowdist_matches_local():
-    """Row-sharded Pallas gridding (subgrid psum over the mesh axis)
-    reproduces the single-device adjoint exactly (SURVEY.md
-    section 2.9 "row parallelism")."""
-    from pfb_tpu.ops.pgridder import vis2dirty_pg
-    from pfb_tpu.parallel.dist import make_vis2dirty_rowdist
-    from pfb_tpu.utils.simulation import image_size_for, simulate_obs
-
-    obs = simulate_obs(nant=7, ntime=6, nchan=2, seed=3)
-    nx, cell = image_size_for(obs, fov_deg=0.2)
-    nx = min(nx, 64)
-    rng = np.random.default_rng(0)
-    nrow, nchan = obs.uvw.shape[0], obs.freq.size
-    vis = rng.normal(size=(nrow, nchan)) + \
-        1j * rng.normal(size=(nrow, nchan))
-    wgt = rng.random((nrow, nchan))
-
-    ref = np.asarray(vis2dirty_pg(
-        obs.uvw, obs.freq, vis, wgt=wgt, nx=nx, ny=nx, cellx=cell,
-        celly=cell, epsilon=1e-7, do_wgridding=True))
-
-    mesh = make_mesh(nband=2, nspace=4)
-    fn, split = make_vis2dirty_rowdist(
-        mesh, obs.uvw, obs.freq, nx=nx, ny=nx, cellx=cell, celly=cell,
-        epsilon=1e-7, do_wgridding=True)
-    out = np.asarray(fn(vis.real, vis.imag, wgt))
-    assert_allclose(out, ref, rtol=1e-10, atol=1e-10 * np.abs(ref).max())
-
-
-def test_grid_worker_row_shards_matches_local(tmp_path):
-    """The grid worker's --row-shards path (row-sharded Pallas
-    gridding adjoints, one psum of subgrids per image) reproduces the
-    single-device pg grid exactly: DIRTY, PSF, PSFHAT, RESIDUAL and
-    WSUM all match (SURVEY.md section 2.9.2 row parallelism, now
-    reachable from a worker)."""
-    from pfb_tpu.utils.ms import simulate_ms
-    from pfb_tpu.workers.grid import _grid
-    from pfb_tpu.workers.init import _init
-
-    ms = str(tmp_path / "t.npz")
-    model, Ix, Iy, nx, cell, _ = simulate_ms(
-        ms, nant=7, ntime=4, nchan=2, nsource=2, fov_deg=0.2, seed=5,
-        gains=False)
-    xds = _init(ms=ms, output_filename=str(tmp_path / "o"),
-                channels_per_image=1, write=False)
-    kwargs = dict(output_filename=None, suffix="main",
-                  field_of_view=0.2, robustness=0.0, psf=True,
-                  residual=False, backend="pg", write=False)
-    ref = _grid(xdsi=[dict(d) for d in xds], **kwargs)
-    got = _grid(xdsi=[dict(d) for d in xds], row_shards=4, **kwargs)
-    assert len(ref) == len(got)
-    for r, g in zip(ref, got):
-        for key in ("DIRTY", "PSF", "PSFHAT_real", "PSFHAT_imag",
-                    "WSUM", "WEIGHT"):
-            assert_allclose(g[key], r[key], rtol=1e-10,
-                            atol=1e-10 * max(1.0,
-                                             np.abs(r[key]).max()),
-                            err_msg=key)
-
-
 def test_fluxmop_space_shards_matches_local(tmp_path):
     """fluxmop --space-shards (band+space-sharded distributed-rFFT2
     PCG forward step) reproduces the single-program solve (SURVEY.md

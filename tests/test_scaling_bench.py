@@ -21,10 +21,10 @@ def test_bench_mesh_rates_positive():
     assert r1 > 0 and r2 > 0
 
 
-def test_bench_mesh_pallas_engine():
-    mesh2 = make_mesh(nband=2, nspace=1, devices=jax.devices()[:2])
-    r = bench_mesh(mesh2, 2, 128, reps=1, chain=1, engine="pallas")
-    assert r > 0
+def test_bench_mesh_band_sharded_four_devices():
+    """The harness on a 4-device band mesh (2 bands per device)."""
+    mesh4 = make_mesh(nband=4, nspace=1, devices=jax.devices()[:4])
+    assert bench_mesh(mesh4, 8, 32, reps=1, chain=1) > 0
 
 
 def test_efficiency_table_shape():

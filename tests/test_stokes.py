@@ -6,6 +6,7 @@ weight_data must recover the Stokes-I model to machine precision."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 from numpy.testing import assert_allclose
 
 from pfb_tpu.utils.stokes import stokes_funcs, unity_jones, weight_data
@@ -131,3 +132,54 @@ def test_single_corr_correction_exact():
     wexp = w0[..., 0] * np.abs(gp) ** 2 * np.abs(gq) ** 2
     assert_allclose(wgt[keep], wexp[keep], atol=1e-12)
     assert (vis[~keep] == 0).all() and (wgt[~keep] == 0).all()
+
+
+@pytest.mark.parametrize("mode", ["diag", "full"])
+@pytest.mark.parametrize("pol", ["linear", "circular"])
+@pytest.mark.parametrize("product", ["I", "Q", "U", "V"])
+def test_stokes_algebra_vs_numpy_kron(product, pol, mode):
+    """The jnp Stokes algebra equals an independent numpy evaluation
+    of W = T^H M^H S^-1 M T and C = W^-1 T^H M^H S^-1 V with
+    M = Gp (x) conj(Gq) (np.kron, np.linalg.inv) per sample."""
+    rng = np.random.default_rng(
+        ["I", "Q", "U", "V"].index(product) * 4
+        + ["linear", "circular"].index(pol) * 2
+        + ["diag", "full"].index(mode))
+    n = 6
+
+    def cplx(*shape):
+        return rng.normal(size=shape) + 1j * rng.normal(size=shape)
+
+    gp = np.eye(2) + 0.2 * cplx(n, 2, 2)
+    gq = np.eye(2) + 0.2 * cplx(n, 2, 2)
+    if mode == "diag":
+        gp *= np.eye(2)
+        gq *= np.eye(2)
+    w = 0.5 + rng.random((n, 4))
+    v = cplx(n, 4)
+    T = {"linear": np.array([[1, 1, 0, 0], [0, 0, 1, 1j],
+                             [0, 0, 1, -1j], [1, -1, 0, 0]]),
+         "circular": np.array([[1, 0, 0, 1], [0, 1, 1j, 0],
+                               [0, 1, -1j, 0], [1, 0, 0, -1]])}[pol]
+    i = "IQUV".index(product)
+    wref = np.zeros(n)
+    cref = np.zeros(n, complex)
+    for s in range(n):
+        M = np.kron(gp[s], gq[s].conj())
+        Sinv = np.diag(w[s])
+        W = T.conj().T @ M.conj().T @ Sinv @ M @ T
+        C = np.linalg.inv(W) @ T.conj().T @ M.conj().T @ Sinv @ v[s]
+        wref[s] = W[i, i].real
+        cref[s] = C[i]
+    vfn, wfn = stokes_funcs(product, pol, mode)
+    if mode == "diag":
+        gargs = (gp[:, 0, 0], gp[:, 1, 1], gq[:, 0, 0], gq[:, 1, 1])
+    else:
+        gargs = tuple(gp[:, a, b] for a in range(2) for b in range(2)) \
+            + tuple(gq[:, a, b] for a in range(2) for b in range(2))
+    gargs = tuple(jnp.asarray(g) for g in gargs)
+    ws = tuple(jnp.asarray(w[:, k]) for k in range(4))
+    vs = tuple(jnp.asarray(v[:, k]) for k in range(4))
+    assert_allclose(np.asarray(wfn(*gargs, *ws)), wref, rtol=1e-10)
+    assert_allclose(np.asarray(vfn(*gargs, *ws, *vs)), cref, rtol=1e-9,
+                    atol=1e-12)
