@@ -19,10 +19,12 @@ dirty image's peak. Every phase prints its wall and compile seconds and
 the device's peak memory. Any failure exits non-zero. The last line is
 one JSON object naming the device.
 
-``--four-cards`` runs only the band-sharded phase: spotless_dist over
-a 4-card ('band',) mesh (2 bands per card) against spotless on card 0
-(models agree to 1e-5 of the model's peak), with the per-card
-collective-free phase times.
+``--four-cards`` runs only the band-sharded phase: the exact residual
+and spotless_dist over a 4-card ('band',) mesh (2 bands per card)
+against the same on card 0, with the per-card collective-free phase
+times. The exact residuals, and the models after one major iteration,
+agree to 1e-5 of their peaks; the models after ``niter`` iterations
+are printed beside the one-card run-to-run spread.
 
 Refuses to run without a GPU. One process uses the cards; the card's
 name and power limit come from nvidia-smi in a child process that
@@ -323,9 +325,81 @@ def run_single(cfg, workdir, ph, run_tests=True):
     return err
 
 
+def max_rel(a, ref):
+    """max|a - ref| / max|ref| in float64."""
+    import numpy as np
+    a = np.asarray(a, np.float64)
+    ref = np.asarray(ref, np.float64)
+    return float(np.abs(a - ref).max() / np.abs(ref).max())
+
+
+def ulp_perturbed(dds, seed=0):
+    """Copies of the datasets with every DIRTY pixel moved one ulp up
+    or down at random."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for ds in dds:
+        d = np.asarray(ds["DIRTY"])
+        to = np.where(rng.random(d.shape) < 0.5, -np.inf, np.inf)
+        out.append(dict(ds, DIRTY=np.nextafter(d, to.astype(d.dtype))))
+    return out
+
+
+def hessnorm_of(dds):
+    """The spotless workers' PSF-Hessian norm estimate (1.05 x the
+    power method's), computed once so that compared runs share it."""
+    import jax
+    import jax.numpy as jnp
+
+    from pfb_tpu.ops.psf import make_psf_convolve
+    from pfb_tpu.opt.power_method import make_power_method_fused
+    from pfb_tpu.workers.cubes import dds2cubes
+    nband = len({d["bandid"] for d in dds})
+    nx, ny = dds[0]["DIRTY"].shape
+    _, _, _, _, psfhat, _, _, _ = dds2cubes(dds, nband, apparent=False)
+    conv = make_psf_convolve(jnp.asarray(psfhat), dds[0]["PSF"].shape[-1])
+    pm = make_power_method_fused(conv.apply, tol=1e-5, maxit=100)
+    b0 = jax.random.normal(jax.random.PRNGKey(42), (nband, nx, ny))
+    return float(pm(b0, conv.consts)[0]) * 1.05
+
+
+def rounding_probes(cfg, dds, hessnorm, ph, model):
+    """How far one card's spotless model (``model``, from ``dds``)
+    moves under rounding alone: with every DIRTY pixel moved by one
+    ulp, and with the bands in reverse order (another order of every
+    band sum, in each solver iteration)."""
+    import numpy as np
+    nband = len({d["bandid"] for d in dds})
+    rev = [dict(d, bandid=nband - 1 - int(d["bandid"])) for d in dds]
+    m_ulp, _ = ph.run("spotless, card 0, DIRTY +-1 ulp", spotless, cfg,
+                      ulp_perturbed(dds), None, hessnorm=hessnorm,
+                      write=False)
+    m_rev, _ = ph.run("spotless, card 0, bands reversed", spotless, cfg,
+                      rev, None, hessnorm=hessnorm, write=False)
+    return {"DIRTY +-1 ulp": max_rel(m_ulp, model),
+            "bands reversed": max_rel(np.asarray(m_rev)[::-1], model)}
+
+
+# the four-card gates: the exact residual and the models after one
+# major iteration, where one card run twice gives the same model
+FOUR_CARD_GATE = 1e-5
+
+
 def run_four_cards(cfg, workdir, ph):
-    """The band-sharded phase: spotless_dist over a 4-card band mesh vs
-    spotless on card 0. Returns the model agreement."""
+    """The band-sharded phase: the exact residual and spotless_dist over
+    a 4-card band mesh vs the same on card 0.
+
+    Gated at ``FOUR_CARD_GATE``: the band-sharded exact residual
+    against the one-card operator on the same cube, and the models
+    after one major iteration (the primal-dual solve from the same
+    residual; only the band sums' reduction order differs), printed
+    beside how far rounding alone moves the one-card model
+    (:func:`rounding_probes`). After
+    ``cfg['niter']`` iterations the exact residual's scatter-add
+    atomics enter the second solve, so that agreement is printed beside
+    the one-card run-to-run spread of the same run. Returns the gated
+    numbers."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -354,41 +428,52 @@ def run_four_cards(cfg, workdir, ph):
     h4 = make_hessian_dds_dist(mesh, dds, nband, wsum, nx, nx, **kw)
     x4 = jax.device_put(jnp.asarray(x), band_sharding(mesh))
     ph.run("exact residual, 4 cards (warm)", h4, x4)
-    ph.run("exact residual, 4 cards", h4, x4)
+    r4 = np.asarray(ph.run("exact residual, 4 cards", h4, x4))
     del h4, x4
     h1 = make_hessian_dds(dds, nband, wsum, nx, nx, **kw)
-    ph.run("exact residual, 1 card (warm)", h1, jnp.asarray(x))
-    ph.run("exact residual, 1 card", h1, jnp.asarray(x))
+    r1 = np.asarray(ph.run("exact residual, 1 card (warm)", h1,
+                           jnp.asarray(x)))
+    r1b = np.asarray(ph.run("exact residual, 1 card", h1,
+                            jnp.asarray(x)))
     del h1
+    res = {"exact residual": max_rel(r4, r1)}
+    log(f"exact residual: max|h_4(x) - h_1(x)| / max|h_1(x)| = "
+        f"{res['exact residual']:.3e} (gate {FOUR_CARD_GATE:g}); one "
+        f"card twice: {max_rel(r1b, r1):.3e}")
+    del r4, r1, r1b
 
     # one hessnorm for both runs, so the comparison sees only the
     # reduction order
-    from pfb_tpu.ops.psf import make_psf_convolve
-    from pfb_tpu.opt.power_method import make_power_method_fused
-    from pfb_tpu.workers.cubes import dds2cubes
-    _, _, _, _, psfhat, _, _, _ = dds2cubes(dds, nband, apparent=False)
-    conv = make_psf_convolve(jnp.asarray(psfhat), dds[0]["PSF"].shape[-1])
-    pm = make_power_method_fused(conv.apply, tol=1e-5, maxit=100)
-    b0 = jax.random.normal(jax.random.PRNGKey(42), (nband, nx, nx))
-    hessnorm = float(pm(b0, conv.consts)[0]) * 1.05
-    del conv, pm, psfhat
+    hessnorm = hessnorm_of(dds)
 
-    opts = dict(niter=cfg["niter"], pd_maxit=cfg["pd_maxit"],
-                epsilon=cfg["epsilon"], backend=cfg["backend"],
-                bases=cfg["bases"], nlevels=cfg["nlevels"],
-                hessnorm=hessnorm, write=False, verbose=1)
-    m4, _ = ph.run("spotless_dist, 4 cards", _spotless_dist, mesh=mesh,
-                   ddsi=[dict(d) for d in dds], **opts)
-    m4 = np.asarray(m4, np.float64)
-    m1, _ = ph.run("spotless, card 0", spotless, cfg, dds, None,
-                   hessnorm=hessnorm, write=False)
-    m1 = np.asarray(m1, np.float64)
-    rel = float(np.abs(m4 - m1).max() / np.abs(m1).max())
-    log(f"four cards vs one: max|model_4 - model_1| / max|model_1| = "
-        f"{rel:.3e} (gate 1e-5)")
-    if not rel <= 1e-5:
-        raise RuntimeError(f"4-card model disagrees: {rel:.3e} > 1e-5")
-    return rel
+    for niter in sorted({1, cfg["niter"]}):
+        c = dict(cfg, niter=niter)
+        m4, _ = ph.run(f"spotless_dist niter={niter}, 4 cards",
+                       _spotless_dist, mesh=mesh,
+                       ddsi=[dict(d) for d in dds], niter=niter,
+                       pd_maxit=c["pd_maxit"], epsilon=c["epsilon"],
+                       backend=c["backend"], bases=c["bases"],
+                       nlevels=c["nlevels"], hessnorm=hessnorm,
+                       write=False, verbose=1)
+        m1, _ = ph.run(f"spotless niter={niter}, card 0", spotless, c,
+                       dds, None, hessnorm=hessnorm, write=False)
+        m1b, _ = ph.run(f"spotless niter={niter}, card 0 again",
+                        spotless, c, dds, None, hessnorm=hessnorm,
+                        write=False)
+        rel = max_rel(m4, m1)
+        spread = f"one card twice: {max_rel(m1b, m1):.3e}"
+        if niter == 1:
+            res["model niter=1"] = rel
+            spread += "; " + "; ".join(
+                f"one card, {k}: {v:.3e}" for k, v in
+                rounding_probes(c, dds, hessnorm, ph, m1).items())
+        gate = f"gate {FOUR_CARD_GATE:g}" if niter == 1 else "not gated"
+        log(f"four cards vs one, niter={niter}: max|model_4 - model_1| "
+            f"/ max|model_1| = {rel:.3e} ({gate}); {spread}")
+    bad = {k: v for k, v in res.items() if not v <= FOUR_CARD_GATE}
+    if bad:
+        raise RuntimeError(f"four cards disagree with one: {bad}")
+    return res
 
 
 def main(argv=None):

@@ -62,8 +62,23 @@ def test_chip_smoke_single_card_pipeline_tiny(tmp_path):
 
 def test_chip_smoke_four_card_pipeline_tiny(tmp_path):
     ph = chip_smoke.Phases()
-    rel = chip_smoke.run_four_cards(dict(TINY), str(tmp_path), ph)
-    assert rel <= 1e-5
+    res = chip_smoke.run_four_cards(dict(TINY, niter=2), str(tmp_path),
+                                    ph)
+    assert set(res) == {"exact residual", "model niter=1"}
+    assert max(res.values()) <= chip_smoke.FOUR_CARD_GATE
+    names = [r[0] for r in ph.rows]
+    assert "spotless_dist niter=2, 4 cards" in names
+
+
+def test_ulp_perturbed_moves_every_pixel_one_ulp():
+    import numpy as np
+    x = np.random.default_rng(3).normal(size=(16, 16)).astype(np.float32)
+    ds = [{"DIRTY": x, "bandid": 0}]
+    y = chip_smoke.ulp_perturbed(ds)[0]["DIRTY"]
+    assert ds[0]["DIRTY"] is x and y.dtype == x.dtype
+    step = np.abs(y.astype(np.float64) - x) / np.spacing(np.abs(x))
+    assert np.all((step >= 0.5) & (step <= 1.0))
+    assert 0 < np.sum(y > x) < x.size
 
 
 def test_chip_smoke_deployment_is_the_issue_size():
